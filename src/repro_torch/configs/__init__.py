@@ -1,0 +1,21 @@
+"""Model configurations the port serves: ``get_config(arch_id)``."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig  # noqa: F401
+
+_ARCH_MODULES = {
+    "smollm-360m": "repro_torch.configs.smollm_360m",
+    "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+}
+
+
+def list_archs() -> list[str]:
+    return list(_ARCH_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; available: {list_archs()}")
+    return importlib.import_module(_ARCH_MODULES[arch]).CONFIG

@@ -1,0 +1,465 @@
+"""Demand-paged reads of an image through L1 -> origin, split into a
+fetch stage and a decode stage (the port of ``repro.core.blockdev``'s
+``TieredReader``; the peer and L2 tiers, retries, the breaker, GC pins
+and ``CowBlockDevice`` are later slices).
+
+  stage F — fetch only (``fetch_ciphertexts``): L1 probe ->
+    single-flight claim -> parallel, limiter-bounded origin fetch.
+  stage D — decode (``core.decode.BatchDecoder``): verify + decrypt
+    whole tiles of ciphertexts.
+
+Read APIs:
+
+* serial (``fetch_chunk`` / ``read``): one chunk at a time through the
+  per-chunk ``decrypt_chunk`` oracle;
+* staged (``fetch_chunks``): stage F for the whole chunk set, then
+  stage D;
+* streamed (``fetch_chunks(..., streamed=True)``, the default restore):
+  stage F on a producer thread pushes each resolved ciphertext into a
+  ``BoundedQueue`` and ``BatchDecoder.decrypt_stream`` decodes tiles on
+  the caller thread while fetch is still running.
+
+Concurrent fetches of one chunk name are single-flighted through a
+``FlightTable`` that an ``ImageService`` shares across all its readers.
+On an ``IntegrityError`` the offending names are evicted from L1 so a
+retry refetches them from origin instead of replaying the bad bytes.
+"""
+from __future__ import annotations
+
+import contextlib
+import itertools
+import threading
+import time
+from concurrent.futures import FIRST_COMPLETED, wait
+
+from repro_torch.core.concurrency import BoundedQueue, LazyPool
+from repro_torch.core.crypto import convergent
+from repro_torch.core.decode import BatchDecoder
+from repro_torch.core.layout import ranges_to_chunks
+from repro_torch.core.manifest import ZERO_CHUNK, Manifest
+from repro_torch.core.telemetry import COUNTERS
+
+DEFAULT_PARALLELISM = 8
+DEFAULT_QUEUE_DEPTH = 32      # streamed hand-off queue bound (chunks)
+
+
+class _Flight:
+    """In-flight fetch for one chunk name (single-flight)."""
+
+    __slots__ = ("event", "ciphertext", "error")
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.ciphertext = None
+        self.error = None
+
+
+class FlightTable:
+    """Shared single-flight registry: (root, chunk name) -> in-flight
+    fetch. Names are content addresses, so one table serves every
+    reader of a service: a stampede on one chunk from different images
+    or tenants costs one origin fetch."""
+
+    __slots__ = ("lock", "flights")
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.flights: dict[tuple, _Flight] = {}
+
+
+class FetchedBatch:
+    """Output of stage F: ciphertexts and the index bookkeeping stage D
+    needs to fan plaintexts back out."""
+
+    __slots__ = ("by_name", "ciphertexts", "zero_indices", "l1_hits", "sink")
+
+    def __init__(self, sink: BoundedQueue | None = None):
+        self.by_name: dict[str, list[int]] = {}     # name -> chunk indices
+        self.ciphertexts: dict[str, bytes] = {}
+        self.zero_indices: list[int] = []
+        self.l1_hits = 0
+        self.sink = sink          # streamed hand-off; None = staged
+
+
+class TieredReader:
+    def __init__(self, manifest: Manifest, store, root: str | None = None,
+                 l1=None, concurrency=None,
+                 decoder: BatchDecoder | None = None, counters=None,
+                 flights: FlightTable | None = None):
+        self.m = manifest
+        self.store = store
+        self.root = root or manifest.root_id
+        self.l1 = l1
+        self.concurrency = concurrency
+        self.decoder = decoder if decoder is not None else BatchDecoder()
+        self.counters = counters if counters is not None else COUNTERS
+        self.last_batch: dict = {}
+        self._refs = {c.index: c for c in manifest.chunks}
+        table = flights if flights is not None else FlightTable()
+        self._flights = table.flights
+        self._flight_lock = table.lock
+        self._fetch_pool = LazyPool()
+
+    # ------------------------------------------------------------- chunks
+    def _origin_get(self, name: str) -> bytes:
+        limiter = self.concurrency if self.concurrency is not None \
+            else contextlib.nullcontext()
+        with limiter:
+            return self.store.get_chunk(self.root, name)
+
+    def _fetch_cipher(self, ref) -> bytes:
+        """Ciphertext of `ref` from origin, single-flighted by chunk
+        name. L1 is probed by callers."""
+        with self._flight_lock:
+            flight = self._flights.get((self.root, ref.name))
+            leader = flight is None
+            if leader:
+                flight = self._flights[(self.root, ref.name)] = _Flight()
+        if not leader:
+            flight.event.wait()
+            self.counters.inc("read.singleflight_dedup")
+            if flight.error is not None:
+                raise flight.error
+            return flight.ciphertext
+        try:
+            ct = self.l1.peek(ref.name) if self.l1 is not None else None
+            if ct is None:              # (a flight may have backfilled L1)
+                ct = self._origin_get(ref.name)
+                self.counters.inc("read.origin_fetches")
+                if self.l1 is not None:
+                    self.l1.put(ref.name, ct)
+            flight.ciphertext = ct
+            return ct
+        except Exception as e:
+            flight.error = e
+            raise
+        finally:
+            with self._flight_lock:
+                self._flights.pop((self.root, ref.name), None)
+            flight.event.set()
+
+    def fetch_chunk(self, index: int) -> bytes:
+        """Plaintext of chunk `index` (serial, per-chunk oracle). A
+        tampered ciphertext is evicted from L1 before the error
+        propagates."""
+        ref = self._refs[index]
+        if ref.name == ZERO_CHUNK:
+            self.counters.inc("read.zero_chunks")
+            return b"\x00" * self.m.chunk_size
+        ct = self.l1.get(ref.name) if self.l1 is not None else None
+        if ct is not None:
+            self.counters.inc("read.l1_hits")
+        else:
+            ct = self._fetch_cipher(ref)
+        try:
+            return convergent.decrypt_chunk(ct, ref.key, ref.sha256)
+        except convergent.IntegrityError:
+            self._invalidate_name(ref.name)
+            raise
+
+    # ------------------------------------------------- stage F: fetch I/O
+    def fetch_ciphertexts(self, indices,
+                          parallelism: int = DEFAULT_PARALLELISM,
+                          sink: BoundedQueue | None = None) -> FetchedBatch:
+        """Pull every distinct chunk name of `indices` as CIPHERTEXT: L1
+        hits first, then single-flighted origin fetches on a
+        `parallelism`-wide pool; names another thread leads are waited
+        on last. With a `sink`, every resolved ``(name, ciphertext)`` is
+        also pushed into the bounded queue as it lands."""
+        fb = FetchedBatch(sink)
+        for i in sorted(set(int(i) for i in indices)):
+            ref = self._refs[i]
+            if ref.name == ZERO_CHUNK:
+                self.counters.inc("read.zero_chunks")
+                fb.zero_indices.append(i)
+            else:
+                fb.by_name.setdefault(ref.name, []).append(i)
+        miss = []
+        for name in fb.by_name:
+            if self.l1 is not None:
+                ct = self.l1.get(name)
+                if ct is not None:
+                    fb.ciphertexts[name] = ct
+                    fb.l1_hits += 1
+                    self.counters.inc("read.l1_hits")
+                    if fb.sink is not None:
+                        fb.sink.put((name, ct))
+                    continue
+            miss.append(name)
+        if not miss:
+            return fb
+        lead, follow = {}, {}
+        with self._flight_lock:
+            for name in miss:
+                flight = self._flights.get((self.root, name))
+                if flight is None:
+                    flight = self._flights[(self.root, name)] = _Flight()
+                    lead[name] = flight
+                else:
+                    follow[name] = flight
+        if lead:
+            self._fetch_leaders(lead, parallelism, fb)
+        for name, flight in follow.items():
+            flight.event.wait()
+            self.counters.inc("read.singleflight_dedup")
+            if flight.error is not None:
+                raise flight.error
+            fb.ciphertexts[name] = flight.ciphertext
+            if fb.sink is not None:
+                fb.sink.put((name, flight.ciphertext))
+        return fb
+
+    def _resolve_flight(self, name: str, flight: _Flight, ct: bytes,
+                        fb: FetchedBatch, push: bool = True):
+        flight.ciphertext = ct
+        with self._flight_lock:
+            self._flights.pop((self.root, name), None)
+        flight.event.set()
+        fb.ciphertexts[name] = ct
+        # push AFTER event.set(): a flight's waiters never wait on sink
+        # backpressure
+        if push and fb.sink is not None:
+            fb.sink.put((name, ct))
+
+    def _poison_flight(self, name: str, flight: _Flight, error: Exception):
+        flight.error = error
+        with self._flight_lock:
+            self._flights.pop((self.root, name), None)
+        flight.event.set()
+
+    def _fetch_leaders(self, lead: dict, parallelism: int,
+                       fb: FetchedBatch):
+        """The names this call leads: L1 double-check (a previous flight
+        may have backfilled it), then the parallel origin stage. Every
+        claimed flight is resolved or poisoned, even on an interrupt."""
+        unresolved = dict(lead)
+        try:
+            pending = []
+            for name in lead:
+                ct = self.l1.peek(name) if self.l1 is not None else None
+                if ct is not None:
+                    self._resolve_flight(name, unresolved.pop(name), ct, fb)
+                else:
+                    pending.append(name)
+            if pending:
+                self._origin_stage(pending, parallelism, unresolved, fb)
+        except BaseException as e:
+            for name in list(unresolved):
+                self._poison_flight(name, unresolved.pop(name), e)
+            raise
+
+    def _origin_stage(self, pending: list, parallelism: int,
+                      unresolved: dict, fb: FetchedBatch):
+        """Parallel origin fetch of `pending` names, at most
+        `parallelism` in flight. A failed fetch poisons only its own
+        flight; never-started names inherit the first error, which is
+        raised once the stage drains."""
+        def fetch_origin(name: str):
+            ct = self._origin_get(name)
+            self.counters.inc("read.origin_fetches")
+            if self.l1 is not None:
+                self.l1.put(name, ct)
+            return ct
+
+        first_err = None
+        workers = max(1, min(int(parallelism), len(pending)))
+        name_iter = iter(pending)
+        pool = self._fetch_pool.get(workers)
+        fut_name = {pool.submit(fetch_origin, n): n
+                    for n in itertools.islice(name_iter, workers)}
+        while fut_name:
+            done, _ = wait(fut_name, return_when=FIRST_COMPLETED)
+            pushes = []
+            for fut in done:
+                name = fut_name.pop(fut)
+                try:
+                    ct = fut.result()
+                except BaseException as e:
+                    self._poison_flight(name, unresolved.pop(name), e)
+                    if first_err is None:
+                        first_err = e
+                    continue
+                # resolve the whole wave (and submit replacements) before
+                # any sink push: backpressure must not delay landed bytes
+                self._resolve_flight(name, unresolved.pop(name), ct, fb,
+                                     push=False)
+                pushes.append((name, ct))
+                if first_err is None:
+                    nxt = next(name_iter, None)
+                    if nxt is not None:
+                        fut_name[pool.submit(fetch_origin, nxt)] = nxt
+            if fb.sink is not None:
+                for name, ct in pushes:
+                    fb.sink.put((name, ct))
+        if first_err is not None:
+            for name in name_iter:
+                self._poison_flight(name, unresolved.pop(name), first_err)
+            raise first_err
+
+    # ------------------------------------------------- stage F + stage D
+    def _invalidate_name(self, name: str):
+        if self.l1 is not None:
+            self.l1.invalidate(name)
+
+    def _invalidate_bad(self, err: convergent.IntegrityError):
+        for name in err.bad_positions:
+            if isinstance(name, str):
+                self._invalidate_name(name)
+
+    def fetch_chunks(self, indices, parallelism: int = DEFAULT_PARALLELISM,
+                     streamed: bool = False,
+                     queue_depth: int = DEFAULT_QUEUE_DEPTH,
+                     decoder: BatchDecoder | None = None) -> dict:
+        """{index: plaintext} for a deduplicated chunk set: stage F then
+        one batched stage D (staged), or both at once (``streamed``,
+        ``fetch_chunks_streamed``). Byte-identical either way."""
+        if streamed:
+            return self.fetch_chunks_streamed(indices, parallelism,
+                                              queue_depth, decoder)
+        dec = decoder if decoder is not None else self.decoder
+        t0 = time.perf_counter()
+        fb = self.fetch_ciphertexts(indices, parallelism)
+        fetch_wall = time.perf_counter() - t0
+        out: dict[int, bytes] = {}
+        decode_wall = 0.0
+        if fb.zero_indices:
+            zero = b"\x00" * self.m.chunk_size
+            for i in fb.zero_indices:
+                out[i] = zero
+        if fb.by_name:
+            refs = [self._refs[idxs[0]] for idxs in fb.by_name.values()]
+            try:
+                plains, decode_wall = dec.decrypt_batch_timed(
+                    refs, fb.ciphertexts)
+            except convergent.IntegrityError as e:
+                self._invalidate_bad(e)
+                raise
+            for name, idxs in fb.by_name.items():
+                for i in idxs:
+                    out[i] = plains[name]
+        self._record_batch(fb, parallelism, t0, fetch_wall, decode_wall,
+                           dec, streamed=False)
+        return out
+
+    def fetch_chunks_streamed(self, indices,
+                              parallelism: int = DEFAULT_PARALLELISM,
+                              queue_depth: int = DEFAULT_QUEUE_DEPTH,
+                              decoder: BatchDecoder | None = None) -> dict:
+        """Streaming read: stage F on a producer thread pushing resolved
+        ciphertexts into a ``queue_depth``-bounded queue; stage D
+        (``decoder.decrypt_stream``) on this thread. ``last_batch``
+        adds ``overlap_s`` (decode work hidden under the fetch wall),
+        ``overlap_fraction`` and the queue's high-water mark."""
+        dec = decoder if decoder is not None else self.decoder
+        t0 = time.perf_counter()
+        refs_by_name: dict[str, object] = {}
+        for i in set(int(i) for i in indices):
+            ref = self._refs[i]
+            if ref.name != ZERO_CHUNK:
+                refs_by_name.setdefault(ref.name, ref)
+        q = BoundedQueue(queue_depth)
+        holder: dict = {}
+
+        def produce():
+            ft = time.perf_counter()
+            try:
+                holder["fb"] = self.fetch_ciphertexts(indices, parallelism,
+                                                      sink=q)
+            except BaseException as e:
+                q.poison(e)
+            else:
+                q.close()
+            finally:
+                holder["fetch_wall"] = time.perf_counter() - ft
+
+        prod = threading.Thread(target=produce, name="stream-fetch",
+                                daemon=True)
+        prod.start()
+        try:
+            plains, dstats = dec.decrypt_stream(q, refs_by_name)
+        except BaseException as e:
+            q.cancel()          # producer puts now drop
+            prod.join()
+            if isinstance(e, convergent.IntegrityError):
+                self._invalidate_bad(e)
+            raise
+        prod.join()
+        fb: FetchedBatch = holder["fb"]
+        out: dict[int, bytes] = {}
+        if fb.zero_indices:
+            zero = b"\x00" * self.m.chunk_size
+            for i in fb.zero_indices:
+                out[i] = zero
+        for name, idxs in fb.by_name.items():
+            for i in idxs:
+                out[i] = plains[name]
+        total = time.perf_counter() - t0
+        fetch_wall = holder["fetch_wall"]
+        busy = dstats["busy_s"]
+        # decode work outside the post-fetch tail ran under the fetch
+        # wall; clamp to the fetch window
+        overlap = max(0.0, min(busy - max(0.0, total - fetch_wall),
+                               fetch_wall))
+        self.counters.add("decode.overlap_s", overlap)
+        self.counters.max_update("stream.queue_hwm", q.high_water)
+        self._record_batch(fb, parallelism, t0, fetch_wall, busy, dec,
+                           streamed=True)
+        self.last_batch.update({
+            "overlap_s": overlap,
+            "overlap_fraction": overlap / busy if busy > 0 else 0.0,
+            "queue_hwm": q.high_water,
+            "queue_depth": q.maxsize,
+            "decode_tiles": dstats["tiles"],
+        })
+        return out
+
+    def _record_batch(self, fb, parallelism, t0, fetch_wall, decode_wall,
+                      dec, streamed: bool):
+        nchunks = len(fb.zero_indices) + sum(len(v)
+                                             for v in fb.by_name.values())
+        self.counters.add("read.batched_chunks", nchunks)
+        self.last_batch = {
+            "chunks": nchunks,
+            "fetched": len(fb.by_name) - fb.l1_hits,
+            "parallelism": int(parallelism),
+            "wall_s": time.perf_counter() - t0,
+            "fetch_wall_s": fetch_wall,
+            "decode_wall_s": decode_wall,
+            "decode_backend": dec.backend,
+            "streamed": streamed,
+        }
+
+    # -------------------------------------------------------------- bytes
+    def _assemble(self, offset: int, length: int, chunks: dict) -> bytes:
+        """Bytes of [offset, offset+length) from prefetched `chunks`
+        (a serial fetch for anything missing)."""
+        cs = self.m.chunk_size
+        parts = []
+        pos, end = offset, offset + length
+        while pos < end:
+            ci, within = divmod(pos, cs)
+            take = min(cs - within, end - pos)
+            chunk = chunks.get(ci)
+            if chunk is None:
+                chunk = self.fetch_chunk(ci)
+            parts.append(chunk[within:within + take]
+                         if (within, take) != (0, len(chunk)) else chunk)
+            pos += take
+        return b"".join(parts)
+
+    def read(self, offset: int, length: int) -> bytes:
+        """Serial read: chunks fetched one at a time, in order."""
+        return self._assemble(offset, length, {})
+
+    def read_many(self, ranges, parallelism: int = DEFAULT_PARALLELISM,
+                  streamed: bool = False,
+                  queue_depth: int = DEFAULT_QUEUE_DEPTH,
+                  decoder: BatchDecoder | None = None) -> list:
+        """One ``fetch_chunks`` over the union chunk set of all
+        (offset, length) `ranges`, then each range assembled from the
+        in-memory chunks. Byte-identical to ``read`` per range."""
+        ranges = list(ranges)
+        idxs = ranges_to_chunks(ranges, self.m.chunk_size)
+        chunks = self.fetch_chunks(idxs, parallelism, streamed=streamed,
+                                   queue_depth=queue_depth, decoder=decoder)
+        return [self._assemble(off, ln, chunks) for off, ln in ranges]

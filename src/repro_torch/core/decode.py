@@ -1,0 +1,364 @@
+"""The decode stage of the fetch/decode restore pipeline, and the
+decode-backend registry (the port of ``repro.core.decode``).
+
+``TieredReader.fetch_ciphertexts`` (blockdev.py) only fetches; this
+module turns a batch of ciphertexts into plaintexts, tile by tile, and
+runs the same hooks forward for the publish path.
+
+Backends — the registry. A backend pairs the batched AES block pass
+(``encrypt_many``) with the batched SHA digest pass (``sha_many``) and,
+optionally, a ``fused`` hook that yields (digests, plaintexts) in one
+pass, together with the tile size and threading they want:
+
+* ``"torch-fused"`` (alias ``"fused"``, and what ``"auto"`` resolves
+  to): the fused verify+decrypt CUDA kernel on the read path, the SHA
+  and AES kernels on the write path.
+* ``"torch"``: two passes, the SHA kernel then the AES kernel.
+* ``"python"`` (alias ``"numpy"``): numpy T-table AES + hashlib — the
+  host oracle.
+* ``"serial"``: the per-chunk ``decrypt_chunk`` oracle (not a registry
+  object; it bypasses the batched pass).
+
+The kernel hooks run on the decoder's ``device``: on ``"cuda"`` they
+launch the kernels, on ``"cpu"`` the kernels' plain PyTorch versions.
+
+Tile sizing. SHA-256 is serial within a chunk, so a kernel launch costs
+at least one chunk's hash and parallelism comes only from chunks per
+launch. The kernel backends therefore register 128 MiB tiles (256
+chunks of 512 KiB); the host backends keep the JAX package's 256 KiB.
+``max_batch_bytes="auto"`` takes the backend's registered tile (the
+JAX package's timed sweep over 64 KiB..1 MiB tiles is not carried over:
+every candidate there is far too small for the kernels); an explicit
+integer always wins.
+"""
+from __future__ import annotations
+
+import functools
+import os
+import time
+from dataclasses import dataclass, field
+
+from repro_torch.core.concurrency import QUEUE_DONE, LazyPool
+from repro_torch.core.crypto import convergent
+from repro_torch.core.telemetry import COUNTERS
+
+DEFAULT_MAX_BATCH_BYTES = 256 << 10
+KERNEL_TILE_BYTES = 128 << 20
+DEFAULT_THREADS = max(1, min(4, os.cpu_count() or 1))
+
+
+# ------------------------------------------------------------- registry
+
+@dataclass
+class DecodeBackend:
+    """One named decode kernel set (module doc). ``loader(device)``
+    returns ``(encrypt_many, sha_many, fused)`` with the hooks bound to
+    `device`; ``None`` selects the numpy T-table core / hashlib / the
+    two-pass route. ``threads=1`` means the kernel owns its
+    parallelism."""
+
+    name: str
+    description: str
+    tile_bytes: int = DEFAULT_MAX_BATCH_BYTES
+    threads: int | None = None
+    loader: object = None
+    _hooks: dict = field(default_factory=dict, init=False, repr=False)
+
+    def hooks(self, device="cuda") -> tuple:
+        key = str(device)
+        if key not in self._hooks:
+            self._hooks[key] = self.loader(device) if self.loader \
+                else (None, None, None)
+        return self._hooks[key]
+
+
+_REGISTRY: dict[str, DecodeBackend] = {}
+_ALIASES: dict[str, str] = {}
+
+
+def register_backend(backend: DecodeBackend, aliases: tuple = ()) -> None:
+    _REGISTRY[backend.name] = backend
+    for a in aliases:
+        _ALIASES[a] = backend.name
+
+
+def known_backend_names() -> list:
+    """Every name ``BatchDecoder``/``ReadPolicy`` accept."""
+    return sorted(set(_REGISTRY) | set(_ALIASES) | {"serial", "auto"})
+
+
+def resolve_backend_name(name: str) -> str:
+    """Canonical registry name for `name` (aliases and ``"auto"``
+    resolved; ``"serial"`` passes through). Raises ``ValueError`` on
+    unknowns."""
+    if name == "serial":
+        return "serial"
+    if name == "auto":
+        return "torch-fused"
+    name = _ALIASES.get(name, name)
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown decode backend {name!r}; known: "
+                         f"{known_backend_names()}")
+    return name
+
+
+def _bind(fn, device):
+    bound = functools.partial(fn, device=device)
+    bound.per_chunk_rks = getattr(fn, "per_chunk_rks", False)
+    return bound
+
+
+def _load_torch(device):
+    from repro_torch.kernels.aes import encrypt_many
+    from repro_torch.kernels.sha256 import sha256_many
+    return _bind(encrypt_many, device), _bind(sha256_many, device), None
+
+
+def _load_torch_fused(device):
+    from repro_torch.kernels.fused import fused_verify_decrypt
+    enc, sha, _ = _load_torch(device)
+    return enc, sha, _bind(fused_verify_decrypt, device)
+
+
+register_backend(DecodeBackend(
+    "python", "batched numpy T-table AES + hashlib verify (host "
+    "oracle)"), aliases=("numpy",))
+register_backend(DecodeBackend(
+    "torch", "two passes: the SHA-256 kernel, then the AES-CTR kernel",
+    tile_bytes=KERNEL_TILE_BYTES, threads=1, loader=_load_torch))
+register_backend(DecodeBackend(
+    "torch-fused", "ONE fused verify+decrypt kernel on the read path; "
+    "the SHA-256 and AES kernels on the write path",
+    tile_bytes=KERNEL_TILE_BYTES, threads=1, loader=_load_torch_fused),
+    aliases=("fused",))
+
+
+class BatchDecoder:
+    """Decodes {name: ciphertext} batches against manifest ChunkRefs,
+    and encrypts chunk batches for publish, on `device`."""
+
+    def __init__(self, backend: str = "torch-fused",
+                 max_batch_bytes: int | str | None = None, device="cuda"):
+        resolved = resolve_backend_name(backend)     # raises on unknowns
+        self.backend = resolved if backend == "auto" else backend
+        self.backend_obj = _REGISTRY.get(resolved)   # None for "serial"
+        self.device = device
+        if max_batch_bytes in (None, "auto"):
+            max_batch_bytes = self.backend_obj.tile_bytes \
+                if self.backend_obj else DEFAULT_MAX_BATCH_BYTES
+        self.max_batch_bytes = max(1, int(max_batch_bytes))
+        self.threads = DEFAULT_THREADS
+        self._encrypt_many = self._sha_many = self._fused = None
+        if self.backend_obj is not None:
+            (self._encrypt_many, self._sha_many,
+             self._fused) = self.backend_obj.hooks(device)
+            self.threads = self.backend_obj.threads or DEFAULT_THREADS
+        self._pool = LazyPool()
+        self.last_wall_s = 0.0
+
+    def decrypt_batch(self, refs: list, ciphertexts: dict) -> dict:
+        """refs: ChunkRefs (one per distinct name); ciphertexts:
+        {name: bytes}. Returns {name: plaintext}; tampered ciphertexts
+        raise ``IntegrityError`` naming every offending chunk."""
+        out, self.last_wall_s = self.decrypt_batch_timed(refs, ciphertexts)
+        return out
+
+    def decrypt_batch_timed(self, refs: list, ciphertexts: dict) -> tuple:
+        """``decrypt_batch`` returning ({name: plaintext}, wall_seconds)."""
+        t0 = time.perf_counter()
+        out: dict[str, bytes] = {}
+        bad_names: list[str] = []
+        if self.backend == "serial":
+            for ref in refs:
+                try:
+                    out[ref.name] = convergent.decrypt_chunk(
+                        ciphertexts[ref.name], ref.key, ref.sha256)
+                except convergent.IntegrityError:
+                    bad_names.append(ref.name)
+        else:
+            tiles = list(self._split(refs, ciphertexts))
+            if len(tiles) > 1 and self.threads > 1:
+                results = list(self._pool.get(self.threads).map(
+                    lambda t: self._decode_tile(t, ciphertexts), tiles))
+            else:
+                results = [self._decode_tile(t, ciphertexts) for t in tiles]
+            for plains, bad in results:
+                out.update(plains)
+                bad_names.extend(bad)
+        if bad_names:
+            raise convergent.IntegrityError(
+                f"chunk ciphertext hash mismatch: {sorted(bad_names)}",
+                sorted(bad_names))
+        COUNTERS.add("decode.batched_chunks", len(out))
+        return out, time.perf_counter() - t0
+
+    def decrypt_stream(self, queue, refs_by_name: dict) -> tuple:
+        """Streaming consumer: drain ``(name, ciphertext)`` pairs from a
+        ``BoundedQueue``, accumulating ``max_batch_bytes`` tiles and
+        decoding each while the fetch producer is still running.
+
+        Returns ``({name: plaintext}, stats)`` with ``busy_s`` (summed
+        decode time), ``wall_s`` and ``tiles``. The stream is drained
+        even after a bad tile; one ``IntegrityError`` then names every
+        bad chunk, and no bad chunk's plaintext is returned. A poisoned
+        queue re-raises the producer's error after every dispatched
+        tile finished."""
+        t0 = time.perf_counter()
+        out: dict[str, bytes] = {}
+        bad_names: list[str] = []
+        results: list = []
+        futures: list = []
+        pool = self._pool.get(self.threads) \
+            if self.backend != "serial" and self.threads > 1 else None
+        part: list = []
+        cts: dict[str, bytes] = {}
+        size = 0
+        busy_inline = 0.0
+
+        def flush():
+            nonlocal part, cts, size
+            if not part:
+                return
+            if pool is not None:
+                futures.append(pool.submit(self._decode_tile_timed, part, cts))
+            else:
+                results.append(self._decode_tile_timed(part, cts))
+            part, cts, size = [], {}, 0
+
+        stream_err = None
+        try:
+            while True:
+                item = queue.get()
+                if item is QUEUE_DONE:
+                    break
+                name, ct = item
+                ref = refs_by_name[name]
+                if self.backend == "serial":
+                    ts = time.perf_counter()
+                    try:
+                        out[ref.name] = convergent.decrypt_chunk(
+                            ct, ref.key, ref.sha256)
+                    except convergent.IntegrityError:
+                        bad_names.append(ref.name)
+                    busy_inline += time.perf_counter() - ts
+                    continue
+                if part and size + len(ct) > self.max_batch_bytes:
+                    flush()
+                part.append(ref)
+                cts[name] = ct
+                size += len(ct)
+        except BaseException as e:
+            stream_err = e
+        else:
+            flush()
+        tile_err = None
+        for f in futures:
+            try:
+                results.append(f.result())
+            except BaseException as e:
+                if tile_err is None:
+                    tile_err = e
+        busy = busy_inline
+        for plains, bad, tile_wall in results:
+            out.update(plains)
+            bad_names.extend(bad)
+            busy += tile_wall
+        if stream_err is not None:          # fetch failure dominates
+            raise stream_err
+        if tile_err is not None:
+            raise tile_err
+        if bad_names:
+            raise convergent.IntegrityError(
+                f"chunk ciphertext hash mismatch: {sorted(bad_names)}",
+                sorted(bad_names))
+        COUNTERS.add("decode.batched_chunks", len(out))
+        return out, {"busy_s": busy, "wall_s": time.perf_counter() - t0,
+                     "tiles": len(results)}
+
+    # --------------------------------------------------- forward direction
+    def derive_keys_batch(self, plaintexts: list, salt: bytes) -> list:
+        """Batched convergent key derivation through the SHA hook."""
+        if self.backend == "serial":
+            return [convergent.derive_key(p, salt) for p in plaintexts]
+        return convergent.derive_keys(plaintexts, salt,
+                                      sha_many=self._sha_many)
+
+    def encrypt_batch_timed(self, plaintexts: list, salt: bytes, *,
+                            keys: list | None = None) -> tuple:
+        """Batched convergent encryption of N chunks through the same
+        hooks, tiled by ``max_batch_bytes``: (``EncryptedChunk`` list in
+        input order, wall_seconds), byte-identical to the serial
+        ``convergent.encrypt_chunk`` oracle. `keys` carries keys already
+        derived by ``derive_keys_batch``."""
+        t0 = time.perf_counter()
+        pts = list(plaintexts)
+        if not pts:
+            return [], 0.0
+        if self.backend == "serial":
+            out = [convergent.encrypt_chunk(p, salt) for p in pts]
+            return out, time.perf_counter() - t0
+        if keys is None:
+            keys = self.derive_keys_batch(pts, salt)
+        tiles = list(self._split_forward(pts, keys))
+        if len(tiles) > 1 and self.threads > 1:
+            results = list(self._pool.get(self.threads).map(
+                lambda t: self._forward_tile(t[0], salt, t[1]), tiles))
+        else:
+            results = [self._forward_tile(p, salt, k) for p, k in tiles]
+        out = [enc for tile in results for enc in tile]
+        COUNTERS.add("decode.forward_chunks", len(out))
+        return out, time.perf_counter() - t0
+
+    def _forward_tile(self, pts: list, salt: bytes, keys: list) -> list:
+        return convergent.encrypt_chunks(
+            pts, salt, keys=keys, encrypt_many=self._encrypt_many,
+            sha_many=self._sha_many)
+
+    def _split_forward(self, pts: list, keys: list):
+        """(plaintexts, keys) tiles under ``max_batch_bytes`` each."""
+        part, pkeys, size = [], [], 0
+        for p, k in zip(pts, keys):
+            if part and size + len(p) > self.max_batch_bytes:
+                yield part, pkeys
+                part, pkeys, size = [], [], 0
+            part.append(p)
+            pkeys.append(k)
+            size += len(p)
+        if part:
+            yield part, pkeys
+
+    def close(self):
+        """Drain the tile pool (idempotent)."""
+        self._pool.shutdown()
+
+    def _decode_tile_timed(self, part: list, ciphertexts: dict) -> tuple:
+        t0 = time.perf_counter()
+        plains, bad = self._decode_tile(part, ciphertexts)
+        return plains, bad, time.perf_counter() - t0
+
+    def _decode_tile(self, part: list, ciphertexts: dict) -> tuple:
+        """One tile through the batched verify+decrypt pass. Returns
+        ({name: plaintext}, [tampered names])."""
+        cts = [ciphertexts[r.name] for r in part]
+        try:
+            plains = convergent.decrypt_chunks(
+                cts, [r.key for r in part], [r.sha256 for r in part],
+                encrypt_many=self._encrypt_many, sha_many=self._sha_many,
+                fused=self._fused)
+        except convergent.IntegrityError as e:
+            return {}, [part[i].name for i in e.bad_positions]
+        return {r.name: p for r, p in zip(part, plains)}, []
+
+    def _split(self, refs: list, ciphertexts: dict):
+        """Tiles under ``max_batch_bytes`` of ciphertext each."""
+        part: list = []
+        size = 0
+        for ref in refs:
+            n = len(ciphertexts[ref.name])
+            if part and size + n > self.max_batch_bytes:
+                yield part
+                part, size = [], 0
+            part.append(ref)
+            size += n
+        if part:
+            yield part

@@ -1,0 +1,336 @@
+"""ImageService: the process-wide read-path agent (the port of
+``repro.core.service``; the L2 and peer tiers, retry and breaker knobs
+and session TTLs are later slices).
+
+* ``ServiceConfig`` — the knobs this slice uses, with the JAX package's
+  names and defaults, except that ``decode_backend`` defaults to
+  ``"torch-fused"`` and there is a ``device`` (default ``"cuda"``;
+  constructing a config for CUDA on a machine without it raises).
+* ``ImageService`` — shared store, L1, admission and fetch limiters,
+  decoder pools and single-flight table; ``open`` hands out
+  ``ImageHandle`` sessions, ``publish`` runs the write path.
+* ``ImageHandle`` — reads of one opened image under a ``ReadPolicy``.
+"""
+from __future__ import annotations
+
+import contextlib
+import hashlib
+import itertools
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from repro_torch import resolve_device
+from repro_torch.core.blockdev import (
+    DEFAULT_PARALLELISM,
+    DEFAULT_QUEUE_DEPTH,
+    FlightTable,
+    TieredReader,
+)
+from repro_torch.core.cache.local import LocalCache
+from repro_torch.core.concurrency import BlockingLimiter, RejectingLimiter
+from repro_torch.core.decode import (
+    BatchDecoder,
+    known_backend_names,
+    resolve_backend_name,
+)
+from repro_torch.core.layout import (
+    CHUNK_SIZE,
+    ImageLayout,
+    read_tensor,
+    shard_byte_ranges,
+)
+from repro_torch.core.manifest import open_manifest
+from repro_torch.core.publish import PublishPipeline
+from repro_torch.core.telemetry import COUNTERS, ScopedCounters
+
+_MODES = ("streamed", "staged", "serial")
+
+
+class ColdStartRejected(RuntimeError):
+    """Admission control turned the cold start away (paper §4.2:
+    excess starts are rejected, not queued)."""
+
+
+@dataclass(frozen=True)
+class ReadPolicy:
+    """How ONE read runs. ``mode``: ``"streamed"`` (default; decode
+    overlaps fetch), ``"staged"`` (fetch, then decode) or ``"serial"``
+    (per-chunk oracle). ``parallelism`` is the origin fetch width;
+    ``decode_backend`` overrides the service's backend (``None``
+    inherits); ``queue_depth`` bounds the streamed hand-off queue."""
+
+    mode: str = "streamed"
+    parallelism: int = DEFAULT_PARALLELISM
+    decode_backend: str | None = None
+    queue_depth: int = DEFAULT_QUEUE_DEPTH
+
+    def __post_init__(self):
+        if self.mode not in _MODES:
+            raise ValueError(f"ReadPolicy.mode must be one of {_MODES}, "
+                             f"got {self.mode!r}")
+        if self.decode_backend is not None and \
+                self.decode_backend not in known_backend_names():
+            raise ValueError(f"unknown decode_backend "
+                             f"{self.decode_backend!r}; known: "
+                             f"{known_backend_names()}")
+        if self.parallelism < 1:
+            raise ValueError("parallelism must be >= 1")
+
+    @property
+    def streamed(self) -> bool:
+        return self.mode == "streamed"
+
+
+@dataclass
+class ServiceConfig:
+    """Process-wide read-path configuration (module doc). ``l1_bytes=0``
+    disables the L1, ``max_coldstarts=0`` admission control and
+    ``fetch_concurrency=0`` the origin limiter."""
+
+    l1_bytes: int = 256 << 20
+    max_coldstarts: int = 4             # admission control (§4.2)
+    fetch_concurrency: int = 16         # 0 = unbounded origin reads
+    decode_backend: str = "torch-fused"  # also runs the publish path
+    max_batch_bytes: int | str = "auto"  # "auto" = the backend's tile
+    session_cap: int = 64               # LRU session bound (0 = unbounded)
+    manifest_cap: int = 128             # LRU manifest bound (0 = unbounded)
+    root: str | None = None             # default root for open()/publish()
+    default_policy: ReadPolicy = field(default_factory=ReadPolicy)
+    device: str = "cuda"
+
+    def __post_init__(self):
+        resolve_device(self.device)
+        resolve_backend_name(self.decode_backend)
+
+
+_SVC_SEQ = itertools.count()
+
+
+class ImageService:
+    """Process-wide agent: construct once, ``open()`` per image."""
+
+    def __init__(self, store, config: ServiceConfig | None = None):
+        cfg = config if config is not None else ServiceConfig()
+        self.config = cfg
+        self.device = resolve_device(cfg.device)
+        self.store = store
+        # a unique telemetry name per service: LocalCache keys its
+        # hit/miss counters off it
+        self.l1 = LocalCache(cfg.l1_bytes, name=f"svc{next(_SVC_SEQ)}.l1") \
+            if cfg.l1_bytes > 0 else None
+        self.fetch_limiter = BlockingLimiter(cfg.fetch_concurrency) \
+            if cfg.fetch_concurrency > 0 else None
+        self.admission = RejectingLimiter(cfg.max_coldstarts) \
+            if cfg.max_coldstarts > 0 else None
+        self.counters = COUNTERS
+        self.flights = FlightTable()
+        self._publisher: PublishPipeline | None = None
+        self._decoders: dict[tuple, BatchDecoder] = {}
+        self._scopes: dict[str, ScopedCounters] = {}
+        self._sessions: OrderedDict = OrderedDict()
+        self._manifests: OrderedDict = OrderedDict()
+        self._closed = False
+        self._lock = threading.Lock()
+
+    # ------------------------------------------------------------ plumbing
+    def decoder_for(self, policy: ReadPolicy) -> BatchDecoder:
+        """The shared ``BatchDecoder`` of `policy`'s backend (one per
+        backend)."""
+        backend = policy.decode_backend or self.config.decode_backend
+        key = resolve_backend_name(backend)
+        with self._lock:
+            dec = self._decoders.get(key)
+            if dec is None:
+                dec = BatchDecoder(backend,
+                                   max_batch_bytes=self.config.max_batch_bytes,
+                                   device=self.device)
+                if not self._closed:
+                    self._decoders[key] = dec
+            return dec
+
+    def tenant_counters(self, tenant: str) -> ScopedCounters:
+        """The per-tenant telemetry scope (updates land in both the
+        global counters and ``tenant.<t>::<name>``)."""
+        with self._lock:
+            sc = self._scopes.get(tenant)
+            if sc is None:
+                sc = self._scopes[tenant] = self.counters.scope(
+                    f"tenant.{tenant}")
+            return sc
+
+    def _cached(self, cache: OrderedDict, key, cap: int, build):
+        """LRU get-or-build (caller does NOT hold the lock)."""
+        with self._lock:
+            if key in cache:
+                cache.move_to_end(key)
+                return cache[key]
+        value = build()
+        with self._lock:
+            if self._closed:
+                return value
+            value = cache.setdefault(key, value)
+            cache.move_to_end(key)
+            while cap > 0 and len(cache) > cap:
+                cache.popitem(last=False)
+            return value
+
+    def close(self):
+        """Drop cached sessions and manifests, drain decoder pools and
+        the publisher. Live handles keep reading; ``open`` raises.
+        Idempotent."""
+        with self._lock:
+            self._closed = True
+            decoders = list(self._decoders.values())
+            self._decoders.clear()
+            self._sessions.clear()
+            self._manifests.clear()
+            publisher, self._publisher = self._publisher, None
+        for dec in decoders:
+            dec.close()
+        if publisher is not None:
+            publisher.close()
+
+    @contextlib.contextmanager
+    def admission_slot(self):
+        """Hold one admission slot; raises ``ColdStartRejected`` when
+        ``max_coldstarts`` starts are in flight (reject, don't queue)."""
+        lim = self.admission
+        if lim is None:
+            yield
+            return
+        if not lim.try_acquire():
+            self.counters.inc("serve.coldstart_rejected")
+            raise ColdStartRejected("cold-start rejected: concurrency limit")
+        try:
+            yield
+        finally:
+            lim.release()
+
+    # -------------------------------------------------------------- open
+    def open(self, manifest_blob: bytes, tenant_key: bytes, *,
+             root: str | None = None, tenant: str | None = None
+             ) -> "ImageHandle":
+        """Open an image session. `root` is the root the manifest was
+        fetched from (default: the config root, then the manifest's);
+        `tenant` defaults to the manifest's. Handles of the same
+        (image, root, tenant) share one ``TieredReader``."""
+        if self._closed:
+            raise RuntimeError("ImageService is closed")
+
+        def parse():
+            m = open_manifest(manifest_blob, tenant_key)
+            return m, ImageLayout.from_table(m.layout_table, m.chunk_size)
+
+        manifest, layout = self._cached(
+            self._manifests, (hashlib.sha256(manifest_blob).digest(),
+                              tenant_key), self.config.manifest_cap, parse)
+        root = root or self.config.root or manifest.root_id
+        tenant = tenant if tenant is not None else manifest.tenant
+
+        def session():
+            scope = self.tenant_counters(tenant)
+            reader = TieredReader(
+                manifest, self.store, root=root, l1=self.l1,
+                concurrency=self.fetch_limiter,
+                decoder=self.decoder_for(self.config.default_policy),
+                counters=scope, flights=self.flights)
+            return reader, scope
+
+        reader, scope = self._cached(
+            self._sessions, (manifest.image_id, root, tenant),
+            self.config.session_cap, session)
+        return ImageHandle(self, manifest, layout, reader, tenant, scope)
+
+    # ------------------------------------------------------------- publish
+    def publisher(self) -> PublishPipeline:
+        """The service's shared write path (lazily built): the decode
+        backend's hooks on the service's device, warming this service's
+        L1 with the fresh ciphertexts."""
+        with self._lock:
+            if self._publisher is None:
+                self._publisher = PublishPipeline(
+                    self.store, backend=self.config.decode_backend,
+                    tile_bytes=self.config.max_batch_bytes, l1=self.l1,
+                    counters=self.counters, device=self.device)
+            return self._publisher
+
+    def publish(self, tree, *, tenant: str, tenant_key: bytes,
+                root: str | None = None, salt_epoch: int = 0,
+                chunk_size: int = CHUNK_SIZE) -> tuple:
+        """Publish a tree of arrays as an image: (manifest blob,
+        CreateStats)."""
+        if self._closed:
+            raise RuntimeError("ImageService is closed")
+        root = root or self.config.root
+        if root is None:
+            raise ValueError("publish needs a root (or ServiceConfig.root)")
+        return self.publisher().publish(
+            tree, tenant=tenant, tenant_key=tenant_key, root=root,
+            salt_epoch=salt_epoch, chunk_size=chunk_size)
+
+
+class ImageHandle:
+    """A session over one opened image."""
+
+    def __init__(self, service: ImageService, manifest, layout: ImageLayout,
+                 reader: TieredReader, tenant: str, scope: ScopedCounters):
+        self.service = service
+        self.manifest = manifest
+        self.layout = layout
+        self.reader = reader
+        self.tenant = tenant
+        self.counters = scope
+
+    def _resolve(self, policy: ReadPolicy | None) -> tuple:
+        """(policy, decoder) with the service defaults applied."""
+        p = policy if policy is not None \
+            else self.service.config.default_policy
+        if p.decode_backend is None:
+            return p, self.reader.decoder
+        return p, self.service.decoder_for(p)
+
+    def tensor_names(self) -> list:
+        return list(self.layout.tensors)
+
+    def tensor(self, name: str) -> np.ndarray:
+        """Serial restore of one tensor (the reference read path)."""
+        return read_tensor(self.layout, name, self.reader.read)
+
+    def restore_tree(self, names=None,
+                     policy: ReadPolicy | None = None) -> dict:
+        """Flat {path: array} for all (or selected) tensors, through one
+        pipelined batch shaped by `policy`."""
+        names = names if names is not None else self.tensor_names()
+        return self.restore_shards({n: None for n in names}, policy)
+
+    def restore_shards(self, shard_slices: dict,
+                       policy: ReadPolicy | None = None) -> dict:
+        """Batched restore of {name: dim_slices | None (full tensor)}:
+        every byte range computed up front, the union chunk set fetched
+        once, then each tensor or shard assembled."""
+        p, dec = self._resolve(policy)
+        plan = []
+        all_ranges = []
+        for name, sl in shard_slices.items():
+            t = self.layout.tensors[name]
+            if not t.shape or sl is None:
+                ranges, shape = [(t.offset, t.nbytes)], t.shape
+            else:
+                ranges = shard_byte_ranges(t, sl)
+                shape = tuple(e - s for s, e in sl)
+            plan.append((name, ranges, shape, np.dtype(t.dtype)))
+            all_ranges.extend(ranges)
+        if p.mode == "serial":
+            bufs = iter([self.reader.read(off, ln) for off, ln in all_ranges])
+        else:
+            bufs = iter(self.reader.read_many(
+                all_ranges, p.parallelism, streamed=p.streamed,
+                queue_depth=p.queue_depth, decoder=dec))
+        out = {}
+        for name, ranges, shape, dt in plan:
+            raw = b"".join(next(bufs) for _ in ranges)
+            out[name] = np.frombuffer(raw, dt).reshape(shape)
+        return out

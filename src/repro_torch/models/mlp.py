@@ -1,0 +1,18 @@
+"""Feed-forward blocks (the port of ``repro.models.mlp``)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def mlp_apply(p: dict, x: torch.Tensor, kind: str,
+              dtype: torch.dtype) -> torch.Tensor:
+    """SwiGLU (``w_gate``, ``w_up``, ``w_down``) or GeLU (``w_up``,
+    ``w_down``); weights (in, out), cast to `dtype`."""
+    if kind == "swiglu":
+        g = x @ p["w_gate"].to(dtype)
+        u = x @ p["w_up"].to(dtype)
+        h = F.silu(g) * u
+    else:
+        h = F.gelu(x @ p["w_up"].to(dtype))
+    return h @ p["w_down"].to(dtype)

@@ -12,3 +12,8 @@ except ModuleNotFoundError:
     import _hypothesis_stub
 
     _hypothesis_stub.install()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
