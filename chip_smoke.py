@@ -6,15 +6,20 @@
 Phases (any failure exits non-zero):
 
 1. toolchain — card name and power limit, nvcc, torch and CUDA
-   versions, whether triton imports; builds the three CUDA kernels of
+   versions, whether triton imports; builds the five CUDA kernels of
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
-2. kernels — each kernel against its plain PyTorch version on the card
-   and against the numpy/hashlib oracles, on lengths 0, 1, 55, 56, 63,
-   64, 65, 4096 and 512 KiB and on a tile of 256 x 512 KiB chunks with
-   distinct keys (exact bytes); a one-byte tamper must raise
+2. kernels — each crypto kernel against its plain PyTorch version on
+   the card and against the numpy/hashlib oracles, on lengths 0, 1, 55,
+   56, 63, 64, 65, 4096 and 512 KiB and on a tile of 256 x 512 KiB
+   chunks with distinct keys (exact bytes); a one-byte tamper must raise
    ``IntegrityError`` naming its chunk. Times each kernel and its plain
    version at the tile, and the fused pass at 1 MiB tiles against the
-   registered 128 MiB tile.
+   registered 128 MiB tile. The two erasure kernels (XOR parity, GF(256)
+   matrix product) against their plain versions and numpy (XOR,
+   ``erasure.gf_matmul``) on stripe lengths 0, 1, 3, 5, 15, 16, 17 and
+   131072, with ``encode_matrix(4, 6)``'s parity rows, a random (8, 8)
+   matrix and a (16, 16) matrix holding all 256 coefficients; parity is
+   timed on one ``put_chunk``'s (4, 131072) stripes.
 3. main path — SmolLM-360M at full width (random weights from
    ``--seed``): ``ImageService.publish`` (SHA and AES kernels),
    ``cold_start`` through a second service on the same store, whose L1
@@ -22,9 +27,20 @@ Phases (any failure exits non-zero):
    byte-identity check of the restored
    tree, and a ``ServeEngine`` answering 4 requests whose greedy tokens
    must equal those of the same weights loaded without the image.
+4. L2 path — on phase 3's image: worker A (``l2_nodes=12``, 4-of-5
+   stripes) restores with an empty L1, so every chunk comes from the
+   origin and fills the L2 once (one parity launch per origin GET);
+   then one L2 node crashes, and worker B, with an empty L1 and A's L2,
+   cold-starts SmolLM-360M staged: no origin GET, every distinct chunk
+   an L2 hit, the chunks that lost a data stripe rebuilt by the GF(256)
+   kernel, the restored tree and the greedy tokens equal to phase 3's.
+   A third worker restores streamed from the same L2 (byte check). The
+   GF(256) kernel is then timed at the largest erasure-signature group
+   of B's reconstruction.
 
-The last lines are the kernel table (``{"kernels": [...]}``), the
-launch counts of phase 3, the ``nvidia-smi`` name/power-limit line and
+The last lines are the launch counts of phases 3 and 4, the kernel
+table (``{"kernels": [...]}``, each kernel's launches counted on the path
+that runs it), the ``nvidia-smi`` name/power-limit line and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -62,16 +78,37 @@ SHA_OPS_PER_BLOCK = 16 + 48 * 10 + 64 * 14 + 8
 # five-way xor); final round 48 (per column 4 extracts, 4 S-box reads,
 # 3 PRMT to assemble the word, 1 key xor).
 AES_OPS_PER_BLOCK = 4 + 13 * 40 + 48
+# Erasure kernels per 32-bit word (four bytes) of an output row that sums
+# m terms: the XOR of m words is ceil((m - 1) / 2) LOP3s (three inputs
+# each); a term whose coefficient is neither 0 nor 1 also costs 11 (4
+# byte extracts, 4 product-table reads, 3 PRMT to reassemble the word).
+# Parity is one row of k ones. The 4-of-5 code's reconstruction matrices
+# hold only 0 and 1, so on the L2 path both kernels are XOR only.
+GF_GENERAL_TERM_OPS = 11
+# queued_ms: a spin of 2e8 cycles lasts ~100 ms at the H100's 1.98 GHz
+# boost clock (longer at lower clocks); the runs must be enqueued in less
+SPIN_CYCLES = 200_000_000
+QUEUED_SPIN_MS = 50.0
 KIB512 = 512 << 10
+STRIPE = KIB512 // 4                    # a 512 KiB chunk's 4-of-5 stripe
 ODD_LENGTHS = (0, 1, 55, 56, 63, 64, 65, 4096, KIB512)
+STRIPE_LENGTHS = (0, 1, 3, 5, 15, 16, 17, STRIPE)
+# kernel -> (source, TPU kernel it replaces, phase whose run counts it)
 TPU_KERNELS = {
     "fused_verify_decrypt": ("src/repro_torch/csrc/fused.cu",
-                             "src/repro/kernels/fused/fusedp.py:107"),
+                             "src/repro/kernels/fused/fusedp.py:107", 3),
     "sha256_many": ("src/repro_torch/csrc/sha256.cu",
-                    "src/repro/kernels/sha256/sha256p.py:91"),
+                    "src/repro/kernels/sha256/sha256p.py:91", 3),
     "aes_encrypt_many": ("src/repro_torch/csrc/aes.cu",
-                         "src/repro/kernels/aes/bitslice_pallas.py:55"),
+                         "src/repro/kernels/aes/bitslice_pallas.py:55", 3),
+    "gf256": ("src/repro_torch/csrc/gf256.cu",
+              "src/repro/kernels/gf256/gf256.py:70", 4),
+    "parity": ("src/repro_torch/csrc/parity.cu",
+               "src/repro/kernels/parity/parity.py:28", 4),
 }
+PATH_KERNELS = {3: ("fused_verify_decrypt", "sha256_many",
+                    "aes_encrypt_many"),
+                4: ("parity", "gf256", "fused_verify_decrypt")}
 
 
 class SmokeFailure(RuntimeError):
@@ -118,6 +155,30 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int) -> float:
+    """Mean device ms of `fn` over `reps` runs queued behind a spin on
+    the card, so that the card runs them back to back: the kernel's own
+    time, without the host's per-call cost (Python, ctypes, allocation),
+    which dominates a launch of a few microseconds. Fails if the host
+    took longer to enqueue the runs than the spin lasted."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    check(enqueue_ms < QUEUED_SPIN_MS, f"enqueueing {reps} runs took "
+          f"{enqueue_ms:.1f} ms, longer than the spin")
+    return start.elapsed_time(end) / reps
+
+
 def wall_ms(fn) -> tuple:
     import torch
     torch.cuda.synchronize()
@@ -125,6 +186,18 @@ def wall_ms(fn) -> tuple:
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def gf_ops(matrix, width: int) -> int:
+    """Fewest 32-bit operations of `matrix` x (k, `width`) bytes (see
+    GF_GENERAL_TERM_OPS)."""
+    words = (width + 3) // 4
+    ops = 0
+    for row in matrix:
+        terms = [int(c) for c in row if c]
+        ops += words * (max(0, -(-(len(terms) - 1) // 2))
+                        + GF_GENERAL_TERM_OPS * sum(c != 1 for c in terms))
+    return ops
 
 
 def max_abs_err(a, b) -> int:
@@ -318,10 +391,89 @@ def phase_kernels(rng, tile_chunks: int, tile_len: int) -> dict:
     return rows
 
 
+def phase_erasure_kernels(rng) -> dict:
+    """Parity and GF(256) against their plain versions and numpy, then
+    parity timed at one ``put_chunk``'s shape. The GF(256) row is timed
+    after phase 4 (``time_gf256``), at the shape phase 4 gave it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import erasure
+    from repro_torch.kernels.gf256 import ops as gops
+    from repro_torch.kernels.parity import ops as pops
+
+    dev = torch.device("cuda")
+    mats = {"encode_matrix(4, 6) parity rows": erasure.encode_matrix(4, 6)[4:],
+            "random (8, 8)": rng.integers(0, 256, (8, 8), dtype=np.uint8),
+            "all 256 coefficients (16, 16)":
+                np.arange(256, dtype=np.uint8).reshape(16, 16)}
+    err_p = err_g = 0
+    for n in STRIPE_LENGTHS:
+        d = rng.integers(0, 256, (4, n), dtype=np.uint8)
+        t = torch.from_numpy(d).to(dev)
+        kp = pops.parity(t)
+        check(np.array_equal(kp.cpu().numpy(),
+                             np.bitwise_xor.reduce(d, axis=0)),
+              f"parity kernel != numpy XOR at stripe length {n}")
+        err_p = max(err_p, max_abs_err(kp, pops.parity_plain(t)))
+        for label, m in mats.items():
+            d = rng.integers(0, 256, (m.shape[1], n), dtype=np.uint8)
+            mt, dt = torch.from_numpy(m).to(dev), torch.from_numpy(d).to(dev)
+            kg = gops.gf_matmul(mt, dt)
+            check(np.array_equal(kg.cpu().numpy(), erasure.gf_matmul(m, d)),
+                  f"gf256 kernel != erasure.gf_matmul, {label}, length {n}")
+            err_g = max(err_g, max_abs_err(kg, gops.gf_matmul_plain(mt, dt)))
+    check(err_p == 0, "parity kernel != plain")
+    check(err_g == 0, "gf256 kernel != plain")
+    log(f"erasure kernels: parity and gf256 equal numpy and their plain "
+        f"versions on stripe lengths {list(STRIPE_LENGTHS)}, matrices "
+        f"{list(mats)}")
+    d = torch.from_numpy(rng.integers(0, 256, (4, STRIPE),
+                                      dtype=np.uint8)).to(dev)
+    ms = queued_ms(lambda: pops.parity(d), 200)
+    plain_ms = queued_ms(lambda: pops.parity_plain(d), 100)
+    call_ms = cuda_ms(lambda: pops.parity(d), 200)
+    log(f"parity: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us "
+        f"at (4, {STRIPE}) bytes (device time, queued); one call back to "
+        f"back with the next, host included: {call_ms * 1e3:.2f} us")
+    return {"parity": dict(ms=ms, plain_ms=plain_ms, max_abs_err=err_p,
+                           call_ms=call_ms,
+                           bound=bound(5 * STRIPE,
+                                       gf_ops(np.ones((1, 4)), STRIPE))),
+            "gf256_check_err": err_g}
+
+
+def time_gf256(rng, matrix, width: int, err: int) -> dict:
+    """The GF(256) kernel and its plain version at (r, k) x (k, width),
+    with the reconstruction matrix phase 4 used for its largest group."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.gf256 import ops as gops
+
+    dev = torch.device("cuda")
+    m = torch.from_numpy(np.ascontiguousarray(matrix)).to(dev)
+    d = torch.from_numpy(rng.integers(0, 256, (matrix.shape[1], width),
+                                      dtype=np.uint8)).to(dev)
+    kg = gops.gf_matmul(m, d)
+    pg = gops.gf_matmul_plain(m, d)
+    err = max(err, max_abs_err(kg, pg))
+    check(err == 0, "gf256 kernel != plain at the phase-4 shape")
+    del kg, pg
+    ms = queued_ms(lambda: gops.gf_matmul(m, d), 20)
+    plain_ms = queued_ms(lambda: gops.gf_matmul_plain(m, d), 2)
+    r, k = matrix.shape
+    nbytes = (r + k) * width + r * k
+    log(f"gf256: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+        f"{nbytes / ms / 1e6:.1f} GB/s at ({r}, {k}) x ({k}, {width}), "
+        f"matrix {matrix.tolist()}")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                bound=bound(nbytes, gf_ops(matrix, width)))
+
+
 # ------------------------------------------------------------- phase 3
 
-def phase_main_path(seed: int, kernels) -> dict:
-    import numpy as np
+def phase_main_path(seed: int, kernels, tmp: Path) -> tuple:
     import torch
 
     from repro_torch.configs import get_config
@@ -338,82 +490,206 @@ def phase_main_path(seed: int, kernels) -> dict:
     log(f"model {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{nparams / 1e6:.1f} M params, weights made in "
         f"{time.perf_counter() - t0:.1f} s")
-    want = {k: hashlib.sha256(v.tobytes()).hexdigest() for k, v in flat.items()}
-    tmp = ROOT / "build" / f"smoke-store-{seed}"
-    shutil.rmtree(tmp, ignore_errors=True)
+    want = tree_digests(flat)
     key = hashlib.sha256(b"smoke tenant key").digest()
     out = {}
-    try:
-        store = ChunkStore(tmp)
-        svc = ImageService(store, ServiceConfig(device="cuda", root="r0"))
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        blob, st = svc.publish(flat, tenant="smoke", tenant_key=key)
-        torch.cuda.synchronize()
-        pub_s = time.perf_counter() - t0
-        timing = svc.publisher().last_timing
-        out["publish_s"] = pub_s
-        out["publish_GBps"] = st.bytes_total / pub_s / 1e9
-        out["publish_crypto_s"] = timing["crypto_s"]
-        out["image_bytes"] = st.bytes_total
-        out["chunks"] = st.total_chunks
-        log(f"publish: {pub_s:.2f} s, {out['publish_GBps']:.3f} GB/s, "
-            f"{st.total_chunks} chunks ({st.zero_chunks} zero), crypto "
-            f"hooks {timing['crypto_s']:.2f} s, image id "
-            f"{timing['image_id_s']:.2f} s")
-        svc.close()
+    store = ChunkStore(tmp)
+    svc = ImageService(store, ServiceConfig(device="cuda", root="r0"))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    blob, st = svc.publish(flat, tenant="smoke", tenant_key=key)
+    torch.cuda.synchronize()
+    pub_s = time.perf_counter() - t0
+    timing = svc.publisher().last_timing
+    out["publish_s"] = pub_s
+    out["publish_GBps"] = st.bytes_total / pub_s / 1e9
+    out["publish_crypto_s"] = timing["crypto_s"]
+    out["image_bytes"] = st.bytes_total
+    out["chunks"] = st.total_chunks
+    log(f"publish: {pub_s:.2f} s, {out['publish_GBps']:.3f} GB/s, "
+        f"{st.total_chunks} chunks ({st.zero_chunks} zero), crypto "
+        f"hooks {timing['crypto_s']:.2f} s, image id "
+        f"{timing['image_id_s']:.2f} s")
+    svc.close()
 
-        # a worker that never published: its L1 starts empty
-        svc = ImageService(store, ServiceConfig(device="cuda", root="r0"))
-        model = DecoderLM(cfg, device="cuda")
-        engine, cs = cold_start(model, blob, key, svc)
-        check(cs["origin_fetches"] >= st.unique_chunks,
-              f"cold start fetched {cs['origin_fetches']} chunks from the "
-              f"origin, fewer than the {st.unique_chunks} stored")
-        out.update({k: cs[k] for k in (
-            "load_seconds", "restore_seconds", "fetch_wall_s",
-            "decode_wall_s", "overlap_fraction", "decode_tiles",
-            "origin_fetches")})
-        log("cold start:", json.dumps({k: out[k] for k in cs if k in out}))
+    # a worker that never published: its L1 starts empty
+    svc = ImageService(store, ServiceConfig(device="cuda", root="r0"))
+    model = DecoderLM(cfg, device="cuda")
+    engine, cs = cold_start(model, blob, key, svc)
+    check(cs["origin_fetches"] >= st.unique_chunks,
+          f"cold start fetched {cs['origin_fetches']} chunks from the "
+          f"origin, fewer than the {st.unique_chunks} stored")
+    out.update({k: cs[k] for k in (
+        "load_seconds", "restore_seconds", "fetch_wall_s",
+        "decode_wall_s", "overlap_fraction", "decode_tiles",
+        "origin_fetches")})
+    log("cold start:", json.dumps({k: out[k] for k in cs if k in out}))
 
-        handle = svc.open(blob, key)
-        restored = handle.restore_tree()
-        got = {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
-               for k, v in restored.items()}
-        check(got == want, "restored tree differs from the published one")
-        del restored
-        log(f"restore: {len(got)} tensors byte-identical (per-tensor SHA-256)")
-        launches = dict(kernels.LAUNCHES)
+    handle = svc.open(blob, key)
+    restored = handle.restore_tree()
+    got = tree_digests(restored)
+    check(got == want, "restored tree differs from the published one")
+    del restored
+    log(f"restore: {len(got)} tensors byte-identical (per-tensor SHA-256)")
+    launches = dict(kernels.LAUNCHES)
 
-        prompts = [rng_prompt(seed + i, cfg.vocab_size) for i in range(4)]
-        reqs = [Request(i, prompt=p, max_new=16) for i, p in enumerate(prompts)]
-        for r in reqs:
-            engine.submit(r)
-        torch.cuda.synchronize()
-        res = engine.run_until_drained()
-        new_tokens = sum(len(r.out) for r in reqs)
-        out["decode_tokens_per_s"] = new_tokens / res["seconds"]
-        out["engine_steps"] = res["steps"]
-        check(all(r.done and len(r.out) == 16 for r in reqs),
-              "requests did not complete")
-        ref_model = DecoderLM(cfg, device="cuda").load_flat(flat)
-        ref = ServeEngine(ref_model, max_batch=4, max_len=128)
-        rreqs = [Request(i, prompt=p, max_new=16)
-                 for i, p in enumerate(prompts)]
-        for r in rreqs:
-            ref.submit(r)
-        ref.run_until_drained()
-        check([r.out for r in reqs] == [r.out for r in rreqs],
-              "cold-started tokens differ from the image-free model's")
-        log(f"serve: 4 requests, {new_tokens} tokens, "
-            f"{out['decode_tokens_per_s']:.1f} tokens/s, tokens equal "
-            f"the image-free model's; first: {reqs[0].out}")
-        out["peak_device_GB"] = torch.cuda.max_memory_allocated() / 1e9
-        out["launches"] = launches
-        svc.close()
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return out
+    prompts = [rng_prompt(seed + i, cfg.vocab_size) for i in range(4)]
+    reqs = [Request(i, prompt=p, max_new=16) for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    res = engine.run_until_drained()
+    new_tokens = sum(len(r.out) for r in reqs)
+    out["decode_tokens_per_s"] = new_tokens / res["seconds"]
+    out["engine_steps"] = res["steps"]
+    check(all(r.done and len(r.out) == 16 for r in reqs),
+          "requests did not complete")
+    ref_model = DecoderLM(cfg, device="cuda").load_flat(flat)
+    ref = ServeEngine(ref_model, max_batch=4, max_len=128)
+    rreqs = [Request(i, prompt=p, max_new=16)
+             for i, p in enumerate(prompts)]
+    for r in rreqs:
+        ref.submit(r)
+    ref.run_until_drained()
+    check([r.out for r in reqs] == [r.out for r in rreqs],
+          "cold-started tokens differ from the image-free model's")
+    log(f"serve: 4 requests, {new_tokens} tokens, "
+        f"{out['decode_tokens_per_s']:.1f} tokens/s, tokens equal "
+        f"the image-free model's; first: {reqs[0].out}")
+    out["peak_device_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = launches
+    svc.close()
+    ctx = {"store": store, "blob": blob, "key": key, "want": want,
+           "unique_chunks": st.unique_chunks, "prompts": prompts,
+           "tokens": [r.out for r in reqs]}
+    return out, ctx
+
+
+def tree_digests(tree: dict) -> dict:
+    import numpy as np
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in tree.items()}
+
+
+# ------------------------------------------------------------- phase 4
+
+def phase_l2_path(kernels, ctx: dict) -> tuple:
+    """Worker A fills a 12-node L2 from the origin; one node crashes;
+    worker B cold-starts from the L2 alone (staged), and a third worker
+    restores streamed from it. Returns (summary, the largest group that
+    reached the GF(256) hook as (matrix, width))."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.cache.distributed import FaultPlan
+    from repro_torch.core.service import ImageService, ReadPolicy, \
+        ServiceConfig
+    from repro_torch.core.telemetry import COUNTERS
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve.coldstart import cold_start
+    from repro_torch.serve.engine import Request
+
+    store, blob, key = ctx["store"], ctx["blob"], ctx["key"]
+    unique = ctx["unique_chunks"]
+    l2_names = ("l2.hits", "l2.misses", "l2.stripe_timeouts", "l2.hedges",
+                "l2.hedge_wins")
+    out = {}
+    kernels.reset_launches()
+
+    # worker A: empty L1, empty L2 -> every chunk from the origin
+    a = ImageService(store, ServiceConfig(device="cuda", root="r0",
+                                          l2_nodes=12))
+    ha = a.open(blob, key)
+    before = ha.counters.get("read.origin_fetches")
+    t0 = time.perf_counter()
+    got = tree_digests(ha.restore_tree())
+    torch.cuda.synchronize()
+    out["fill_restore_s"] = time.perf_counter() - t0
+    fills = ha.counters.get("read.origin_fetches") - before
+    out["fill_origin_fetches"] = fills
+    out["fill_parity_launches"] = kernels.LAUNCHES["parity"]
+    check(got == ctx["want"], "worker A's restore differs from phase 3's")
+    check(fills >= unique, f"worker A fetched {fills} chunks from the "
+          f"origin, fewer than the {unique} distinct ones")
+    check(kernels.LAUNCHES["parity"] == fills,
+          f"{kernels.LAUNCHES['parity']} parity launches for {fills} "
+          "L2 fills")
+    log(f"L2 fill: worker A restored in {out['fill_restore_s']:.2f} s, "
+        f"{fills:.0f} origin GETs, {kernels.LAUNCHES['parity']} parity "
+        "launches")
+
+    a.l2.set_fault("cache-000", FaultPlan.crashed())
+    groups = []
+    matmul = a.l2.coder.matmul_fn
+
+    def recording(matrix, data):
+        groups.append((matrix.copy(), data.shape[1]))
+        return matmul(matrix, data)
+    a.l2.coder.matmul_fn = recording
+
+    # worker B: empty L1, A's L2 with cache-000 crashed, staged cold start
+    cfg = get_config("smollm-360m")
+    b = ImageService(store, ServiceConfig(device="cuda", root="r0"),
+                     l2=a.l2)
+    model = DecoderLM(cfg, device="cuda")
+    loaded = {}
+    load_flat = model.load_flat
+
+    def capture(flat):
+        loaded.update(flat)
+        return load_flat(flat)
+    model.load_flat = capture
+    c0 = {k: COUNTERS.get(k) for k in l2_names}
+    g0 = kernels.LAUNCHES["gf256"]
+    engine, cs = cold_start(model, blob, key, b,
+                            policy=ReadPolicy(mode="staged", l2_hedge=True))
+    l2c = {k: COUNTERS.get(k) - c0[k] for k in l2_names}
+    out.update({f"b_{k}": cs[k] for k in (
+        "load_seconds", "restore_seconds", "fetch_wall_s", "decode_wall_s",
+        "origin_fetches", "l2_hits")})
+    out["b_l2"] = l2c
+    out["b_gf256_launches"] = kernels.LAUNCHES["gf256"] - g0
+    out["b_groups"] = sorted((w // STRIPE for _, w in groups), reverse=True)
+    log("L2 cold start:", json.dumps({k: v for k, v in out.items()
+                                      if k.startswith("b_")}))
+    check(cs["origin_fetches"] == 0,
+          f"worker B made {cs['origin_fetches']} origin GETs")
+    check(cs["l2_hits"] == unique,
+          f"worker B had {cs['l2_hits']} L2 hits for {unique} chunks")
+    check(out["b_gf256_launches"] >= 1, "the GF(256) kernel did not run")
+    check(tree_digests(loaded) == ctx["want"],
+          "worker B's restored tree differs from phase 3's")
+    del loaded
+    reqs = [Request(i, prompt=p, max_new=16)
+            for i, p in enumerate(ctx["prompts"])]
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_drained()
+    check([r.out for r in reqs] == ctx["tokens"],
+          "worker B's tokens differ from phase 3's")
+    log("L2 serve: 4 requests, greedy tokens equal phase 3's")
+    del engine, model
+    b.close()
+
+    # a third worker: streamed restore from the same L2
+    c = ImageService(store, ServiceConfig(device="cuda", root="r0"),
+                     l2=a.l2)
+    hc = c.open(blob, key)
+    before = hc.counters.get("read.origin_fetches")
+    t0 = time.perf_counter()
+    got = tree_digests(hc.restore_tree(policy=ReadPolicy(l2_hedge=True)))
+    out["c_restore_s"] = time.perf_counter() - t0
+    out["c_origin_fetches"] = hc.counters.get("read.origin_fetches") - before
+    out["c_l2_hits"] = hc.reader.last_batch["l2_hits"]
+    check(got == ctx["want"], "the streamed L2 restore differs from phase 3's")
+    log(f"L2 streamed restore: {out['c_restore_s']:.2f} s, "
+        f"{out['c_l2_hits']} L2 hits, {out['c_origin_fetches']:.0f} origin "
+        "GETs, byte-identical")
+    c.close()
+    a.close()
+    out["launches"] = dict(kernels.LAUNCHES)
+    largest = max(groups, key=lambda g: g[1])
+    return out, largest
 
 
 def rng_prompt(seed: int, vocab: int) -> list:
@@ -445,31 +721,49 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
+    tmp = ROOT / "build" / f"smoke-store-{args.seed}"
+    shutil.rmtree(tmp, ignore_errors=True)
     try:
         smi_line = phase_toolchain(kernels)
         rng = np.random.default_rng(args.seed)
         rows = phase_kernels(rng, 256, KIB512)
-        main_path = phase_main_path(args.seed, kernels)
-        for name, n in main_path["launches"].items():
-            check(n > 0, f"kernel {name} was not launched on the main path")
+        erasure_rows = phase_erasure_kernels(rng)
+        rows["parity"] = erasure_rows["parity"]
+        main_path, ctx = phase_main_path(args.seed, kernels, tmp)
+        l2_path, largest = phase_l2_path(kernels, ctx)
+        rows["gf256"] = time_gf256(rng, *largest,
+                                   erasure_rows["gf256_check_err"])
+        launches = {3: main_path["launches"], 4: l2_path["launches"]}
+        for phase, names in PATH_KERNELS.items():
+            for name in names:
+                check(launches[phase][name] > 0, f"kernel {name} was not "
+                      f"launched on the path of phase {phase}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     table = []
-    for name, (src, replaces) in TPU_KERNELS.items():
+    for name, (src, replaces, phase) in TPU_KERNELS.items():
         r = rows[name]
         bound_ms, bound_by = r["bound"]
+        # no single PyTorch call computes SHA-256, AES, an XOR reduction
+        # over rows or a GF(256) product, so there is no library time
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces,
-                      "launches": main_path["launches"][name],
+                      "launches": launches[phase][name],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": None})
     summary = {k: v for k, v in main_path.items() if k != "launches"}
     summary["tile_effect"] = rows["tile_effect"]
+    summary["parity_call_ms"] = rows["parity"]["call_ms"]
+    summary["l2_path"] = {k: v for k, v in l2_path.items()
+                          if k != "launches"}
     summary["smoke_seconds"] = time.perf_counter() - t_all
     log("main path:", json.dumps(summary))
-    log(json.dumps({"launches": main_path["launches"]}))
+    log(json.dumps({"launches": {"phase3": launches[3],
+                                 "phase4": launches[4]}}))
     log(json.dumps({"kernels": table}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

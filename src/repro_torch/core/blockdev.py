@@ -1,10 +1,12 @@
-"""Demand-paged reads of an image through L1 -> origin, split into a
-fetch stage and a decode stage (the port of ``repro.core.blockdev``'s
-``TieredReader``; the peer and L2 tiers, retries, the breaker, GC pins
-and ``CowBlockDevice`` are later slices).
+"""Demand-paged reads of an image through L1 -> L2 -> origin, split into
+a fetch stage and a decode stage (the port of ``repro.core.blockdev``'s
+``TieredReader``; the peer tier, retries, the breaker, GC pins and
+``CowBlockDevice`` are later slices).
 
   stage F — fetch only (``fetch_ciphertexts``): L1 probe ->
-    single-flight claim -> parallel, limiter-bounded origin fetch.
+    single-flight claim -> one batched L2 stripe fetch -> parallel,
+    limiter-bounded origin fetch, which fills the L2 with every chunk
+    it reads.
   stage D — decode (``core.decode.BatchDecoder``): verify + decrypt
     whole tiles of ciphertexts.
 
@@ -16,17 +18,21 @@ Read APIs:
   stage D;
 * streamed (``fetch_chunks(..., streamed=True)``, the default restore):
   stage F on a producer thread pushes each resolved ciphertext into a
-  ``BoundedQueue`` and ``BatchDecoder.decrypt_stream`` decodes tiles on
-  the caller thread while fetch is still running.
+  ``BoundedQueue`` (L1 hits first, then each L2 reconstruction the
+  moment its k-th stripe lands, then origin fetches) and
+  ``BatchDecoder.decrypt_stream`` decodes tiles on the caller thread
+  while fetch is still running.
 
 Concurrent fetches of one chunk name are single-flighted through a
 ``FlightTable`` that an ``ImageService`` shares across all its readers.
-On an ``IntegrityError`` the offending names are evicted from L1 so a
-retry refetches them from origin instead of replaying the bad bytes.
+On an ``IntegrityError`` the offending names are evicted from L1 and L2
+so a retry refetches them from origin instead of replaying the bad
+bytes.
 """
 from __future__ import annotations
 
 import contextlib
+import inspect
 import itertools
 import threading
 import time
@@ -71,25 +77,28 @@ class FetchedBatch:
     """Output of stage F: ciphertexts and the index bookkeeping stage D
     needs to fan plaintexts back out."""
 
-    __slots__ = ("by_name", "ciphertexts", "zero_indices", "l1_hits", "sink")
+    __slots__ = ("by_name", "ciphertexts", "zero_indices", "l1_hits",
+                 "l2_hits", "sink")
 
     def __init__(self, sink: BoundedQueue | None = None):
         self.by_name: dict[str, list[int]] = {}     # name -> chunk indices
         self.ciphertexts: dict[str, bytes] = {}
         self.zero_indices: list[int] = []
         self.l1_hits = 0
+        self.l2_hits = 0
         self.sink = sink          # streamed hand-off; None = staged
 
 
 class TieredReader:
     def __init__(self, manifest: Manifest, store, root: str | None = None,
-                 l1=None, concurrency=None,
+                 l1=None, l2=None, concurrency=None,
                  decoder: BatchDecoder | None = None, counters=None,
                  flights: FlightTable | None = None):
         self.m = manifest
         self.store = store
         self.root = root or manifest.root_id
         self.l1 = l1
+        self.l2 = l2
         self.concurrency = concurrency
         self.decoder = decoder if decoder is not None else BatchDecoder()
         self.counters = counters if counters is not None else COUNTERS
@@ -99,6 +108,12 @@ class TieredReader:
         self._flights = table.flights
         self._flight_lock = table.lock
         self._fetch_pool = LazyPool()
+        # can the L2 feed the stream per chunk (get_chunks(on_ready=))?
+        # can it hedge straggler stripes (get_chunks(hedge=))?
+        l2_get = getattr(l2, "get_chunks", None)
+        l2_params = inspect.signature(l2_get).parameters if l2_get else {}
+        self._l2_streams = "on_ready" in l2_params
+        self._l2_hedges = "hedge" in l2_params
 
     # ------------------------------------------------------------- chunks
     def _origin_get(self, name: str) -> bytes:
@@ -108,8 +123,8 @@ class TieredReader:
             return self.store.get_chunk(self.root, name)
 
     def _fetch_cipher(self, ref) -> bytes:
-        """Ciphertext of `ref` from origin, single-flighted by chunk
-        name. L1 is probed by callers."""
+        """Ciphertext of `ref` from L2, else origin (which fills the L2),
+        single-flighted by chunk name. L1 is probed by callers."""
         with self._flight_lock:
             flight = self._flights.get((self.root, ref.name))
             leader = flight is None
@@ -122,10 +137,17 @@ class TieredReader:
                 raise flight.error
             return flight.ciphertext
         try:
+            # (a flight may have backfilled L1)
             ct = self.l1.peek(ref.name) if self.l1 is not None else None
-            if ct is None:              # (a flight may have backfilled L1)
+            if ct is None and self.l2 is not None:
+                _, ct = self.l2.get_chunk(ref.name, self.m.chunk_size)
+                if ct is not None and self.l1 is not None:
+                    self.l1.put(ref.name, ct)
+            if ct is None:
                 ct = self._origin_get(ref.name)
                 self.counters.inc("read.origin_fetches")
+                if self.l2 is not None:
+                    self.l2.put_chunk(ref.name, ct)
                 if self.l1 is not None:
                     self.l1.put(ref.name, ct)
             flight.ciphertext = ct
@@ -160,12 +182,16 @@ class TieredReader:
     # ------------------------------------------------- stage F: fetch I/O
     def fetch_ciphertexts(self, indices,
                           parallelism: int = DEFAULT_PARALLELISM,
-                          sink: BoundedQueue | None = None) -> FetchedBatch:
+                          sink: BoundedQueue | None = None,
+                          l2_hedge: bool | None = None) -> FetchedBatch:
         """Pull every distinct chunk name of `indices` as CIPHERTEXT: L1
-        hits first, then single-flighted origin fetches on a
+        hits first, then the names this call leads through one batched
+        L2 fetch and single-flighted origin fetches on a
         `parallelism`-wide pool; names another thread leads are waited
         on last. With a `sink`, every resolved ``(name, ciphertext)`` is
-        also pushed into the bounded queue as it lands."""
+        also pushed into the bounded queue as it lands. ``l2_hedge``
+        overrides the L2's hedged-GET default for this batch (None
+        inherits); it is forwarded only when the L2 supports it."""
         fb = FetchedBatch(sink)
         for i in sorted(set(int(i) for i in indices)):
             ref = self._refs[i]
@@ -198,7 +224,7 @@ class TieredReader:
                 else:
                     follow[name] = flight
         if lead:
-            self._fetch_leaders(lead, parallelism, fb)
+            self._fetch_leaders(lead, parallelism, fb, l2_hedge)
         for name, flight in follow.items():
             flight.event.wait()
             self.counters.inc("read.singleflight_dedup")
@@ -228,10 +254,11 @@ class TieredReader:
         flight.event.set()
 
     def _fetch_leaders(self, lead: dict, parallelism: int,
-                       fb: FetchedBatch):
+                       fb: FetchedBatch, l2_hedge: bool | None = None):
         """The names this call leads: L1 double-check (a previous flight
-        may have backfilled it), then the parallel origin stage. Every
-        claimed flight is resolved or poisoned, even on an interrupt."""
+        may have backfilled it), then one batched L2 fetch, then the
+        parallel origin stage. Every claimed flight is resolved or
+        poisoned, even on an interrupt."""
         unresolved = dict(lead)
         try:
             pending = []
@@ -241,12 +268,43 @@ class TieredReader:
                     self._resolve_flight(name, unresolved.pop(name), ct, fb)
                 else:
                     pending.append(name)
+            if pending and self.l2 is not None:
+                pending = self._l2_stage(pending, unresolved, fb, l2_hedge)
             if pending:
                 self._origin_stage(pending, parallelism, unresolved, fb)
         except BaseException as e:
             for name in list(unresolved):
                 self._poison_flight(name, unresolved.pop(name), e)
             raise
+
+    def _l2_stage(self, pending: list, unresolved: dict, fb: FetchedBatch,
+                  l2_hedge: bool | None) -> list:
+        """One batched L2 fetch of `pending` names; returns the misses.
+        Streamed (a sink and an L2 that takes ``on_ready``): each chunk
+        resolves and feeds the sink the moment its k-th stripe is
+        rebuilt, instead of after the whole stripe wave."""
+        cs = self.m.chunk_size
+        kw = {"hedge": l2_hedge} \
+            if self._l2_hedges and l2_hedge is not None else {}
+
+        def hit(name, _lat, ct):
+            fb.l2_hits += 1
+            if self.l1 is not None:
+                self.l1.put(name, ct)
+            self._resolve_flight(name, unresolved.pop(name), ct, fb)
+
+        if self._l2_streams and fb.sink is not None:
+            res = self.l2.get_chunks(pending, cs, on_ready=hit, **kw)
+            return [n for n in pending if res[n][1] is None]
+        res = self.l2.get_chunks(pending, cs, **kw)
+        still = []
+        for name in pending:
+            lat, ct = res[name]
+            if ct is None:
+                still.append(name)
+            else:
+                hit(name, lat, ct)
+        return still
 
     def _origin_stage(self, pending: list, parallelism: int,
                       unresolved: dict, fb: FetchedBatch):
@@ -257,6 +315,8 @@ class TieredReader:
         def fetch_origin(name: str):
             ct = self._origin_get(name)
             self.counters.inc("read.origin_fetches")
+            if self.l2 is not None:
+                self.l2.put_chunk(name, ct)
             if self.l1 is not None:
                 self.l1.put(name, ct)
             return ct
@@ -298,8 +358,11 @@ class TieredReader:
 
     # ------------------------------------------------- stage F + stage D
     def _invalidate_name(self, name: str):
+        """Evict one tamper-flagged chunk name from L1 and the L2."""
         if self.l1 is not None:
             self.l1.invalidate(name)
+        if self.l2 is not None:
+            self.l2.invalidate(name)
 
     def _invalidate_bad(self, err: convergent.IntegrityError):
         for name in err.bad_positions:
@@ -309,16 +372,17 @@ class TieredReader:
     def fetch_chunks(self, indices, parallelism: int = DEFAULT_PARALLELISM,
                      streamed: bool = False,
                      queue_depth: int = DEFAULT_QUEUE_DEPTH,
-                     decoder: BatchDecoder | None = None) -> dict:
+                     decoder: BatchDecoder | None = None,
+                     l2_hedge: bool | None = None) -> dict:
         """{index: plaintext} for a deduplicated chunk set: stage F then
         one batched stage D (staged), or both at once (``streamed``,
         ``fetch_chunks_streamed``). Byte-identical either way."""
         if streamed:
             return self.fetch_chunks_streamed(indices, parallelism,
-                                              queue_depth, decoder)
+                                              queue_depth, decoder, l2_hedge)
         dec = decoder if decoder is not None else self.decoder
         t0 = time.perf_counter()
-        fb = self.fetch_ciphertexts(indices, parallelism)
+        fb = self.fetch_ciphertexts(indices, parallelism, l2_hedge=l2_hedge)
         fetch_wall = time.perf_counter() - t0
         out: dict[int, bytes] = {}
         decode_wall = 0.0
@@ -344,7 +408,8 @@ class TieredReader:
     def fetch_chunks_streamed(self, indices,
                               parallelism: int = DEFAULT_PARALLELISM,
                               queue_depth: int = DEFAULT_QUEUE_DEPTH,
-                              decoder: BatchDecoder | None = None) -> dict:
+                              decoder: BatchDecoder | None = None,
+                              l2_hedge: bool | None = None) -> dict:
         """Streaming read: stage F on a producer thread pushing resolved
         ciphertexts into a ``queue_depth``-bounded queue; stage D
         (``decoder.decrypt_stream``) on this thread. ``last_batch``
@@ -363,8 +428,8 @@ class TieredReader:
         def produce():
             ft = time.perf_counter()
             try:
-                holder["fb"] = self.fetch_ciphertexts(indices, parallelism,
-                                                      sink=q)
+                holder["fb"] = self.fetch_ciphertexts(
+                    indices, parallelism, sink=q, l2_hedge=l2_hedge)
             except BaseException as e:
                 q.poison(e)
             else:
@@ -421,6 +486,7 @@ class TieredReader:
         self.last_batch = {
             "chunks": nchunks,
             "fetched": len(fb.by_name) - fb.l1_hits,
+            "l2_hits": fb.l2_hits,
             "parallelism": int(parallelism),
             "wall_s": time.perf_counter() - t0,
             "fetch_wall_s": fetch_wall,
@@ -454,12 +520,14 @@ class TieredReader:
     def read_many(self, ranges, parallelism: int = DEFAULT_PARALLELISM,
                   streamed: bool = False,
                   queue_depth: int = DEFAULT_QUEUE_DEPTH,
-                  decoder: BatchDecoder | None = None) -> list:
+                  decoder: BatchDecoder | None = None,
+                  l2_hedge: bool | None = None) -> list:
         """One ``fetch_chunks`` over the union chunk set of all
         (offset, length) `ranges`, then each range assembled from the
         in-memory chunks. Byte-identical to ``read`` per range."""
         ranges = list(ranges)
         idxs = ranges_to_chunks(ranges, self.m.chunk_size)
         chunks = self.fetch_chunks(idxs, parallelism, streamed=streamed,
-                                   queue_depth=queue_depth, decoder=decoder)
+                                   queue_depth=queue_depth, decoder=decoder,
+                                   l2_hedge=l2_hedge)
         return [self._assemble(off, ln, chunks) for off, ln in ranges]

@@ -43,6 +43,13 @@ class LRUK:
             self._touch(key)
             return self.data[key]
 
+    def peek(self, key: str):
+        """``get`` without recording an access: a hedged re-GET of a key
+        a node already served must not count twice toward its recency
+        (one logical read, two requests)."""
+        with self._lock:
+            return self.data.get(key)
+
     def put(self, key: str, value: bytes):
         with self._lock:
             if key in self.data:

@@ -1,14 +1,17 @@
 """ImageService: the process-wide read-path agent (the port of
-``repro.core.service``; the L2 and peer tiers, retry and breaker knobs
-and session TTLs are later slices).
+``repro.core.service``; the peer tier, retry and breaker knobs and
+session TTLs are later slices).
 
 * ``ServiceConfig`` — the knobs this slice uses, with the JAX package's
   names and defaults, except that ``decode_backend`` defaults to
   ``"torch-fused"`` and there is a ``device`` (default ``"cuda"``;
   constructing a config for CUDA on a machine without it raises).
-* ``ImageService`` — shared store, L1, admission and fetch limiters,
+* ``ImageService`` — shared store, L1, L2, admission and fetch limiters,
   decoder pools and single-flight table; ``open`` hands out
-  ``ImageHandle`` sessions, ``publish`` runs the write path.
+  ``ImageHandle`` sessions, ``publish`` runs the write path. The L2 is
+  either passed in (``ImageService(store, cfg, l2=...)``, one L2 shared
+  by several workers) or built from ``l2_nodes`` > 0, with the erasure
+  kernels of the service's device as its hooks.
 * ``ImageHandle`` — reads of one opened image under a ``ReadPolicy``.
 """
 from __future__ import annotations
@@ -29,6 +32,7 @@ from repro_torch.core.blockdev import (
     FlightTable,
     TieredReader,
 )
+from repro_torch.core.cache.distributed import DistributedCache
 from repro_torch.core.cache.local import LocalCache
 from repro_torch.core.concurrency import BlockingLimiter, RejectingLimiter
 from repro_torch.core.decode import (
@@ -45,6 +49,8 @@ from repro_torch.core.layout import (
 from repro_torch.core.manifest import open_manifest
 from repro_torch.core.publish import PublishPipeline
 from repro_torch.core.telemetry import COUNTERS, ScopedCounters
+from repro_torch.kernels.gf256.ops import rs_matmul_fn
+from repro_torch.kernels.parity.ops import parity_fn_for_erasure
 
 _MODES = ("streamed", "staged", "serial")
 
@@ -60,12 +66,16 @@ class ReadPolicy:
     overlaps fetch), ``"staged"`` (fetch, then decode) or ``"serial"``
     (per-chunk oracle). ``parallelism`` is the origin fetch width;
     ``decode_backend`` overrides the service's backend (``None``
-    inherits); ``queue_depth`` bounds the streamed hand-off queue."""
+    inherits); ``queue_depth`` bounds the streamed hand-off queue.
+    ``l2_hedge``: hedged stripe GETs in the L2 for this read (``None``
+    inherits the cache's ``hedge_quantile``; forwarded only when the L2
+    supports hedging)."""
 
     mode: str = "streamed"
     parallelism: int = DEFAULT_PARALLELISM
     decode_backend: str | None = None
     queue_depth: int = DEFAULT_QUEUE_DEPTH
+    l2_hedge: bool | None = None
 
     def __post_init__(self):
         if self.mode not in _MODES:
@@ -87,10 +97,16 @@ class ReadPolicy:
 @dataclass
 class ServiceConfig:
     """Process-wide read-path configuration (module doc). ``l1_bytes=0``
-    disables the L1, ``max_coldstarts=0`` admission control and
-    ``fetch_concurrency=0`` the origin limiter."""
+    disables the L1, ``l2_nodes=0`` the L2, ``max_coldstarts=0``
+    admission control and ``fetch_concurrency=0`` the origin limiter.
+    The ``l2_*`` knobs size the L2 the service builds itself (``None``
+    keeps the cache's default)."""
 
     l1_bytes: int = 256 << 20
+    l2_nodes: int = 0                   # 0 = no L2 tier
+    l2_seed: int = 0
+    l2_mem_bytes: int | None = None
+    l2_flash_bytes: int | None = None
     max_coldstarts: int = 4             # admission control (§4.2)
     fetch_concurrency: int = 16         # 0 = unbounded origin reads
     decode_backend: str = "torch-fused"  # also runs the publish path
@@ -100,6 +116,11 @@ class ServiceConfig:
     root: str | None = None             # default root for open()/publish()
     default_policy: ReadPolicy = field(default_factory=ReadPolicy)
     device: str = "cuda"
+    # L2 resilience knobs (only used when the service builds its own L2)
+    l2_stripe_deadline_s: float | None = None   # None = cache default
+    l2_hedge_quantile: float | None = None      # None = hedging off
+    l2_infection_threshold: int = 0             # 0 = hot-key salting off
+    l2_salt_count: int = 3                      # placement keys when salted
 
     def __post_init__(self):
         resolve_device(self.device)
@@ -112,7 +133,8 @@ _SVC_SEQ = itertools.count()
 class ImageService:
     """Process-wide agent: construct once, ``open()`` per image."""
 
-    def __init__(self, store, config: ServiceConfig | None = None):
+    def __init__(self, store, config: ServiceConfig | None = None, *,
+                 l2=None):
         cfg = config if config is not None else ServiceConfig()
         self.config = cfg
         self.device = resolve_device(cfg.device)
@@ -121,6 +143,7 @@ class ImageService:
         # hit/miss counters off it
         self.l1 = LocalCache(cfg.l1_bytes, name=f"svc{next(_SVC_SEQ)}.l1") \
             if cfg.l1_bytes > 0 else None
+        self.l2 = l2 if l2 is not None else self._build_l2(cfg)
         self.fetch_limiter = BlockingLimiter(cfg.fetch_concurrency) \
             if cfg.fetch_concurrency > 0 else None
         self.admission = RejectingLimiter(cfg.max_coldstarts) \
@@ -136,6 +159,27 @@ class ImageService:
         self._lock = threading.Lock()
 
     # ------------------------------------------------------------ plumbing
+    def _build_l2(self, cfg: ServiceConfig):
+        """The L2 of ``l2_nodes`` nodes, its erasure coder running the
+        parity and GF(256) kernels on this service's device (their
+        plain versions on the CPU); None for ``l2_nodes=0``."""
+        if cfg.l2_nodes <= 0:
+            return None
+        kw = {}
+        if cfg.l2_mem_bytes is not None:
+            kw["mem_bytes"] = cfg.l2_mem_bytes
+        if cfg.l2_flash_bytes is not None:
+            kw["flash_bytes"] = cfg.l2_flash_bytes
+        if cfg.l2_stripe_deadline_s is not None:
+            kw["stripe_deadline_s"] = cfg.l2_stripe_deadline_s
+        return DistributedCache(
+            num_nodes=cfg.l2_nodes, seed=cfg.l2_seed,
+            parity_fn=parity_fn_for_erasure(self.device),
+            matmul_fn=rs_matmul_fn(self.device),
+            hedge_quantile=cfg.l2_hedge_quantile,
+            infection_threshold=cfg.l2_infection_threshold,
+            salt_count=cfg.l2_salt_count, **kw)
+
     def decoder_for(self, policy: ReadPolicy) -> BatchDecoder:
         """The shared ``BatchDecoder`` of `policy`'s backend (one per
         backend)."""
@@ -233,7 +277,7 @@ class ImageService:
         def session():
             scope = self.tenant_counters(tenant)
             reader = TieredReader(
-                manifest, self.store, root=root, l1=self.l1,
+                manifest, self.store, root=root, l1=self.l1, l2=self.l2,
                 concurrency=self.fetch_limiter,
                 decoder=self.decoder_for(self.config.default_policy),
                 counters=scope, flights=self.flights)
@@ -328,7 +372,8 @@ class ImageHandle:
         else:
             bufs = iter(self.reader.read_many(
                 all_ranges, p.parallelism, streamed=p.streamed,
-                queue_depth=p.queue_depth, decoder=dec))
+                queue_depth=p.queue_depth, decoder=dec,
+                l2_hedge=p.l2_hedge))
         out = {}
         for name, ranges, shape, dt in plan:
             raw = b"".join(next(bufs) for _ in ranges)

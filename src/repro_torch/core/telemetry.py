@@ -3,7 +3,7 @@ the port keeps its own so it never imports the JAX package)."""
 from __future__ import annotations
 
 import threading
-from collections import defaultdict
+from collections import defaultdict, deque
 
 import numpy as np
 
@@ -135,3 +135,28 @@ class LatencyRecorder:
                 "p99": float(np.percentile(a, 99)),
                 "p999": float(np.percentile(a, 99.9)),
                 "max": float(a.max())}
+
+
+class QuantileWindow:
+    """Sliding-window quantile over the most recent samples: the L2's
+    hedged-GET deadline is "past the p-th quantile of *recent* stripe
+    latencies", so the window is a small ring buffer. ``quantile``
+    returns NaN until ``min_samples`` have landed (hedging stays off
+    while the estimate would be noise). Thread-safe: stripe pool workers
+    record concurrently."""
+
+    def __init__(self, maxlen: int = 512, min_samples: int = 32):
+        self._dq: deque = deque(maxlen=maxlen)
+        self.min_samples = min_samples
+        self._lock = threading.Lock()
+
+    def record(self, value: float):
+        with self._lock:
+            self._dq.append(value)
+
+    def quantile(self, q: float) -> float:
+        with self._lock:
+            if len(self._dq) < self.min_samples:
+                return float("nan")
+            a = np.fromiter(self._dq, dtype=float)
+        return float(np.quantile(a, q))

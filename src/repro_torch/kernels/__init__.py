@@ -5,7 +5,9 @@ with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds). The build happens at first use, one ``nvcc``
 process per source, all started together, into ``build/`` at the root
 of the checkout (``REPRO_TORCH_BUILD_DIR`` overrides it). A library is
-named by the hash of its sources, so an edited source is rebuilt.
+named by the hash of its source and of the local headers that source
+includes, so an edited source or header rebuilds just the libraries that
+use it.
 
 Each kernel's wrapper (``kernels.<name>.ops``) adds one to
 ``LAUNCHES[<kernel>]`` right after it launches the kernel, and nowhere
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,12 +26,12 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("sha256", "aes", "fused")
+SOURCES = ("sha256", "aes", "fused", "parity", "gf256")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"fused_verify_decrypt": 0, "sha256_many": 0,
-            "aes_encrypt_many": 0}
+            "aes_encrypt_many": 0, "parity": 0, "gf256": 0}
 BUILD_INFO: dict = {}
 
 _LOCK = threading.Lock()
@@ -42,7 +45,12 @@ _SIGNATURES = {
             [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P, _P]),
     "fused": ("fused_verify_decrypt_launch",
               [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P]),
+    "parity": ("parity_launch",
+               [_P, ctypes.c_int, ctypes.c_longlong, _P, _P]),
+    "gf256": ("gf256_matmul_launch",
+              [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong, _P, _P]),
 }
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def build_dir() -> Path:
@@ -63,9 +71,23 @@ def _nvcc() -> str:
                        "toolkit (nvcc on PATH or under /usr/local/cuda)")
 
 
+def _sources_of(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes with
+    ``#include "..."``, transitively, in a fixed order."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        p = todo.pop(0)
+        if p in seen:
+            continue
+        seen.append(p)
+        todo += [CSRC / h for h in _INCLUDE.findall(p.read_text())
+                 if (CSRC / h).is_file()]
+    return seen
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for p in (CSRC / f"{name}.cu", CSRC / "crypto_common.cuh"):
+    for p in _sources_of(name):
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"

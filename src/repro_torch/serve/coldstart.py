@@ -23,8 +23,8 @@ def cold_start(model, manifest_blob: bytes, tenant_key: bytes,
                policy: ReadPolicy | None = None, max_batch: int = 4,
                max_len: int = 128) -> tuple:
     """Returns (engine, stats): ``load_seconds`` (open + restore + load
-    into the model), the restore's fetch/decode split and overlap, and
-    ``restore_seconds`` (open + restore only)."""
+    into the model), the restore's fetch/decode split, overlap and L2
+    hits, and ``restore_seconds`` (open + restore only)."""
     with service.admission_slot():
         t0 = time.perf_counter()
         handle = service.open(manifest_blob, tenant_key, root=root,
@@ -56,5 +56,6 @@ def cold_start(model, manifest_blob: bytes, tenant_key: bytes,
             "overlap_fraction": lb.get("overlap_fraction"),
             "queue_hwm": lb.get("queue_hwm"),
             "decode_tiles": lb.get("decode_tiles"),
+            "l2_hits": lb.get("l2_hits"),
         }
         return engine, stats

@@ -35,7 +35,10 @@ def test_port_imports_no_jax_and_no_repro():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for m in ("repro_torch.core.service", "repro_torch.serve.coldstart",
-              "repro_torch.kernels.fused.ops", "repro_torch.models.lm"):
+              "repro_torch.kernels.fused.ops", "repro_torch.models.lm",
+              "repro_torch.core.cache.distributed",
+              "repro_torch.kernels.gf256.ops",
+              "repro_torch.kernels.parity.ops"):
         assert m in res["modules"]
 
 
