@@ -14,7 +14,13 @@ Phases (any failure exits non-zero):
    chunks with distinct keys (exact bytes); a one-byte tamper must raise
    ``IntegrityError`` naming its chunk. Times each kernel and its plain
    version at the tile, and the fused pass at 1 MiB tiles against the
-   registered 128 MiB tile. The two erasure kernels (XOR parity, GF(256)
+   registered 128 MiB tile. The SHA-256 engine's risky inputs through
+   the SHA and fused kernels against their plain versions, hashlib and
+   ``ctr_decrypt``: one group of lengths 0, 1, 55, 64, 65, 512 KiB and
+   524,304 (salt and chunk), N = 1, 31, 33 and 257 messages, starts
+   1..15 bytes off the 16-byte grid; the launch
+   geometry (G, stages, warps, shared memory) of both kernels at the
+   tile is printed. The two erasure kernels (XOR parity, GF(256)
    matrix product) against their plain versions and numpy (XOR,
    ``erasure.gf_matmul``) on stripe lengths 0, 1, 3, 5, 15, 16, 17 and
    131072, with ``encode_matrix(4, 6)``'s parity rows, a random (8, 8)
@@ -73,6 +79,16 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # 1 LOP3; ch and maj 1 LOP3 each; t1 2 IADD3; a and e 1 add each);
 # final 8 adds.
 SHA_OPS_PER_BLOCK = 16 + 48 * 10 + 64 * 14 + 8
+# The chain: a message's SHA-256 blocks are dependent, each 64 rounds of
+# those 14 instructions, which one thread must issue in order, at most
+# one a cycle at the 1.98 GHz boost clock. So a launch lasts at least its
+# longest message's blocks x 64 x 14 cycles, however many messages run
+# beside it (the operation bound spreads them over all 132 x 64 lanes,
+# which 256 chains cannot fill). In practice a warp instruction holds a
+# sub-partition's 16-lane INT32 pipe for 2 cycles, so about twice the
+# chain term is the floor of rounds issued on that pipe alone.
+SHA_CHAIN_INSNS_PER_ROUND = 14
+CHAIN_ISSUE_PER_S = 1.98e9
 # AES-256 per 16-byte block (T-table): initial key xor 4; 13 middle
 # rounds x 40 (per column 4 byte extracts, 4 table reads, 2 LOP3 for the
 # five-way xor); final round 48 (per column 4 extracts, 4 S-box reads,
@@ -93,6 +109,12 @@ KIB512 = 512 << 10
 STRIPE = KIB512 // 4                    # a 512 KiB chunk's 4-of-5 stripe
 ODD_LENGTHS = (0, 1, 55, 56, 63, 64, 65, 4096, KIB512)
 STRIPE_LENGTHS = (0, 1, 3, 5, 15, 16, 17, STRIPE)
+KEY_DERIVATION = 16 + KIB512            # salt || chunk, hashed on publish
+# one group mixing every padding case with chains of 8193 blocks
+MIXED_GROUP = (0, 1, 55, 64, 65, KIB512, KEY_DERIVATION)
+ENGINE_BATCHES = (1, 31, 33, 257)       # not multiples of either kernel's G
+UNALIGNED = (0, 1, 55, 56, 63, 64, 65, 127, 128, 129, 300, 5000, 17, 31,
+             48, 65536, KEY_DERIVATION)
 # kernel -> (source, TPU kernel it replaces, phase whose run counts it)
 TPU_KERNELS = {
     "fused_verify_decrypt": ("src/repro_torch/csrc/fused.cu",
@@ -136,9 +158,16 @@ def sha_blocks(lengths) -> int:
     return sum((int(n) + 72) // 64 for n in lengths)
 
 
-def bound(nbytes: float, ops: float) -> tuple:
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+def bound(nbytes: float, ops: float, chain_blocks: int = 0) -> tuple:
+    """(least ms, what sets it): the larger of the bytes over the HBM
+    rate, the operations over the INT32 rate and, for SHA-256, the
+    longest message's chain of `chain_blocks` blocks (see above)."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": ops / INT32_OPS_PER_S,
+             "chain": chain_blocks * 64 * SHA_CHAIN_INSNS_PER_ROUND
+             / CHAIN_ISSUE_PER_S}
+    by = max(terms, key=terms.get)
+    return terms[by] * 1e3, by
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -276,7 +305,8 @@ def phase_kernels(rng, tile_chunks: int, tile_len: int) -> dict:
     rows["sha256_many"] = dict(
         ms=ms, plain_ms=plain_ms, max_abs_err=err,
         bound=bound(nbytes + 48 * tile_chunks,
-                    sha_blocks([tile_len] * tile_chunks) * SHA_OPS_PER_BLOCK))
+                    sha_blocks([tile_len] * tile_chunks) * SHA_OPS_PER_BLOCK,
+                    sha_blocks([tile_len])))
     log(f"sha256: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
         f"{nbytes / ms / 1e6:.3f} GB/s at {tile_chunks} x {tile_len} B")
 
@@ -353,7 +383,8 @@ def phase_kernels(rng, tile_chunks: int, tile_len: int) -> dict:
         + tile_chunks * (tile_len // 16) * (AES_OPS_PER_BLOCK + 4)
     rows["fused_verify_decrypt"] = dict(
         ms=ms, plain_ms=plain_ms, max_abs_err=err,
-        bound=bound(2 * nbytes + tile_chunks * (32 + 16 + 240), ops))
+        bound=bound(2 * nbytes + tile_chunks * (32 + 16 + 240), ops,
+                    sha_blocks([tile_len])))
     log(f"fused: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
         f"{nbytes / ms / 1e6:.3f} GB/s at {tile_chunks} x {tile_len} B")
     del pp, pdg, kp
@@ -389,6 +420,69 @@ def phase_kernels(rng, tile_chunks: int, tile_len: int) -> dict:
     log(f"tile effect: {tile_chunks} chunks through the fused hook: "
         f"{per}-chunk tiles {small_ms:.1f} ms, one tile {big_ms:.1f} ms")
     return rows
+
+
+def phase_engine_cases(rng) -> None:
+    """The SHA-256 engine's risky inputs through both redesigned kernels,
+    each held against its plain version (``sha256_lanes_plain``, and
+    ``ctr_decrypt_plain`` for the fused plaintext) and hashlib/
+    ``ctr_decrypt``: one group mixing lengths 0..524,304, batches of
+    N = 1, 31, 33, 257, and starts 1..15 bytes off the 16-byte grid.
+    Prints each kernel's launch geometry at the tile."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.crypto import aes
+    from repro_torch.kernels.fused import ops as fops
+    from repro_torch.kernels.sha256 import ops as sops
+
+    dev = torch.device("cuda")
+    for name, mod in (("sha256", sops), ("fused", fops)):
+        log(f"  {name} geometry at 256 chunks: {mod.geometry(256)}")
+
+    def case(label, lengths, misalign=False):
+        msgs = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+                for n in lengths]
+        keys = [rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+                for _ in msgs]
+        if misalign:
+            offs, end = [], 0
+            for i, m in enumerate(msgs):
+                offs.append((end + 15) // 16 * 16 + 1 + i % 15)
+                end = offs[-1] + len(m)
+            buf = rng.integers(0, 256, end + 7, dtype=np.uint8)
+            for m, o in zip(msgs, offs):
+                buf[o:o + len(m)] = np.frombuffer(m, np.uint8)
+            packed = (buf, np.array(offs, np.int64),
+                      np.array([len(m) for m in msgs], np.int64))
+        else:
+            packed = sops.pack_messages(msgs)
+        t = sops.to_device(*packed, dev)
+        rks = torch.from_numpy(fops.round_keys(keys).view(np.int32)).to(dev)
+        want = np.frombuffer(b"".join(hashlib.sha256(m).digest()
+                                      for m in msgs), np.uint8).reshape(-1, 32)
+        plain_dig = sops.sha256_lanes_plain(*t)
+        plain_pt = fops.ctr_decrypt_plain(*t, rks)
+        check(np.array_equal(plain_dig.cpu().numpy(), want),
+              f"sha256 plain != hashlib, {label}")
+        dig = sops.sha256_lanes(*t)
+        pt, fdig = fops.fused_verify_decrypt_lanes(*t, rks)
+        check(torch.equal(dig, plain_dig) and torch.equal(fdig, plain_dig),
+              f"sha256/fused digests != plain, {label}")
+        check(np.array_equal(dig.cpu().numpy(), want),
+              f"sha256 kernel != hashlib, {label}")
+        ptn, ppn = pt.cpu().numpy(), plain_pt.cpu().numpy()
+        for m, k, o in zip(msgs, keys, packed[1]):
+            check(ptn[o:o + len(m)].tobytes() == aes.ctr_decrypt(m, k)
+                  and np.array_equal(ptn[o:o + len(m)], ppn[o:o + len(m)]),
+                  f"fused plaintext != ctr_decrypt/plain, {label}")
+        log(f"engine case {label}: {len(msgs)} messages, kernels == plain "
+            f"== hashlib/ctr_decrypt")
+
+    case(f"one group of lengths {list(MIXED_GROUP)}", MIXED_GROUP)
+    for n in ENGINE_BATCHES:
+        case(f"N={n}", rng.integers(0, 5000, n))
+    case("unaligned starts", UNALIGNED, misalign=True)
 
 
 def phase_erasure_kernels(rng) -> dict:
@@ -727,6 +821,7 @@ def main() -> int:
         smi_line = phase_toolchain(kernels)
         rng = np.random.default_rng(args.seed)
         rows = phase_kernels(rng, 256, KIB512)
+        phase_engine_cases(rng)
         erasure_rows = phase_erasure_kernels(rng)
         rows["parity"] = erasure_rows["parity"]
         main_path, ctx = phase_main_path(args.seed, kernels, tmp)

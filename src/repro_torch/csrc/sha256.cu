@@ -1,4 +1,6 @@
-// SHA-256 over N messages of mixed length, one thread per message.
+// SHA-256 over N messages of mixed length: the warp-specialised engine
+// of sha256_engine.cuh with a digest write, one thread block per group
+// of G messages.
 //
 // Replaces: kernels/sha256/sha256p.py::sha256_lanes_pallas (the lockstep
 // Pallas kernel of the JAX package; host adapter sha256/ops.py::
@@ -6,24 +8,33 @@
 // byte buffer with per-message offsets and lengths, and the padding
 // (sha256v._pad) is done on the device instead of on the host.
 //
-// What bounds it: SHA-256 is a serial chain of compressions within a
-// message, ~2.2k 32-bit operations per 64-byte block, so the time of a
-// launch is at least one message's chain (8192 dependent compressions
-// for a 512 KiB chunk) and parallelism comes only from messages per
-// launch. The design therefore gives each message its own thread and
-// packs 32 messages per warp, one warp per block so the warps spread
-// over the SMs; callers batch hundreds of chunks per launch.
-#include "crypto_common.cuh"
+// What bounds it: the longest message's chain of dependent rounds
+// (sha256_engine.cuh), 3.707 ms for a 512 KiB chunk at one instruction
+// per cycle, ~7.4 ms as the card runs it. Messages are independent, so
+// a launch of up to 132 x G messages costs about one chain: the consumer
+// warp of each block runs only the rounds, the producer warps keep the
+// next stages' W+K ready.
+#include "sha256_engine.cuh"
 
 namespace {
 
-__global__ void sha256_lanes_kernel(const uint8_t* __restrict__ buf,
-                                    const int64_t* __restrict__ offsets,
-                                    const int64_t* __restrict__ lengths,
-                                    int n, uint8_t* __restrict__ digests) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  rc::sha256_message(buf + offsets[i], lengths[i], digests + 32 * (int64_t)i);
+using namespace rc;
+
+// G, the messages per thread block (one consumer lane each): of G = 8,
+// 16 and 32 at the 256 x 512 KiB tile, 32 was the fastest for this
+// kernel (PERF.md), and it needs the fewest blocks.
+constexpr int kGroup = 32;
+
+__global__ void __launch_bounds__(sha::kThreads)
+sha256_engine_kernel(const uint8_t* __restrict__ buf,
+                     const int64_t* __restrict__ offsets,
+                     const int64_t* __restrict__ lengths, int n,
+                     uint8_t* __restrict__ digests, uint32_t one) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  if (threadIdx.x == 0) sha::init_barriers(smem);
+  __syncthreads();
+  sha::hash_group<kGroup>(smem, blockIdx.x, buf, offsets, lengths, n,
+                          digests, one);
 }
 
 }  // namespace
@@ -31,10 +42,28 @@ __global__ void sha256_lanes_kernel(const uint8_t* __restrict__ buf,
 extern "C" int sha256_lanes_launch(const void* buf, const void* offsets,
                                    const void* lengths, int n, void* digests,
                                    void* stream) {
-  const int threads = 32;
-  const int blocks = (n + threads - 1) / threads;
-  sha256_lanes_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int smem = sha::smem_bytes(kGroup);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        sha256_engine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  sha256_engine_kernel<<<(n + kGroup - 1) / kGroup, sha::kThreads, smem,
+                         (cudaStream_t)stream>>>(
       (const uint8_t*)buf, (const int64_t*)offsets, (const int64_t*)lengths,
-      n, (uint8_t*)digests);
+      n, (uint8_t*)digests, 1u);
   return (int)cudaGetLastError();
+}
+
+// Launch geometry for n messages: out = {G, stages, warps per block,
+// threads per block, dynamic shared bytes, blocks}.
+extern "C" int sha256_lanes_geometry(int n, long long* out) {
+  out[0] = kGroup;
+  out[1] = sha::kStages;
+  out[2] = sha::kWarps;
+  out[3] = sha::kThreads;
+  out[4] = sha::smem_bytes(kGroup);
+  out[5] = (n + kGroup - 1) / kGroup;
+  return 0;
 }

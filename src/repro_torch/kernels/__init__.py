@@ -39,8 +39,7 @@ _LIBS: dict = {}
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "sha256": ("sha256_lanes_launch",
-               [_P, _P, _P, ctypes.c_int, _P, _P]),
+    "sha256": ("sha256_lanes_launch", [_P, _P, _P, ctypes.c_int, _P, _P]),
     "aes": ("aes_encrypt_launch",
             [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P, _P]),
     "fused": ("fused_verify_decrypt_launch",
@@ -160,6 +159,21 @@ def launch(name: str, kernel: str, *args) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
     with _LOCK:
         LAUNCHES[kernel] += 1
+
+
+def geometry(name: str, fn_name: str, n: int, keys: tuple) -> dict:
+    """The launch geometry that ``csrc/<name>.cu``'s ``fn_name(n,
+    long long *out)`` reports for `n` messages, as a dict over `keys`
+    (built on first use)."""
+    lib = library(name)
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(keys))()
+    err = fn(n, out)
+    if err != 0:
+        raise RuntimeError(f"{fn_name}({n}) failed: error {err}")
+    return dict(zip(keys, out))
 
 
 def reset_launches() -> None:

@@ -27,6 +27,9 @@ from repro_torch.kernels.aes.ops import M32, _cols_to_bytes, \
 from repro_torch.kernels.sha256.ops import pack_messages, \
     sha256_lanes_plain, to_device
 
+GEOMETRY_KEYS = ("group", "stages", "hash_warps", "threads", "smem_bytes",
+                 "hash_blocks", "ctr_blocks")
+
 
 def ctr_decrypt_plain(buf: torch.Tensor, offsets: torch.Tensor,
                       lengths: torch.Tensor,
@@ -86,6 +89,12 @@ def fused_verify_decrypt_lanes(buf: torch.Tensor, offsets: torch.Tensor,
                        rks.data_ptr(), rks.shape[1] - 1, n,
                        plain.data_ptr(), digests.data_ptr())
     return plain, digests
+
+
+def geometry(n: int) -> dict:
+    """The kernel's launch geometry for `n` chunks (GEOMETRY_KEYS), as
+    ``csrc/fused.cu`` computes it on the current card."""
+    return kernels.geometry("fused", "fused_geometry", n, GEOMETRY_KEYS)
 
 
 def round_keys(keys: list) -> np.ndarray:

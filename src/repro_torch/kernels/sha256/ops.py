@@ -23,6 +23,8 @@ from repro_torch.core.crypto.sha256v import _H0, _K
 
 M32 = 0xFFFFFFFF
 ALIGN = 16          # message offsets in a packed buffer (16-byte loads)
+GEOMETRY_KEYS = ("group", "stages", "warps", "threads", "smem_bytes",
+                 "blocks")
 
 
 def pack_messages(datas: list) -> tuple:
@@ -190,6 +192,13 @@ def sha256_lanes(buf: torch.Tensor, offsets: torch.Tensor,
                        offsets.data_ptr(), lengths.data_ptr(), n,
                        out.data_ptr())
     return out
+
+
+def geometry(n: int) -> dict:
+    """The kernel's launch geometry for `n` messages (GEOMETRY_KEYS),
+    as ``csrc/sha256.cu`` computes it."""
+    return kernels.geometry("sha256", "sha256_lanes_geometry", n,
+                            GEOMETRY_KEYS)
 
 
 def sha256_many(datas: list, *, device="cuda") -> list:

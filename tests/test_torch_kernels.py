@@ -5,8 +5,8 @@ verify-then-decrypt, and the bitsliced AES Pallas kernel in interpret
 mode on a few blocks) and hashlib. The JAX package's SHA-256 Pallas and
 fused jit routes are not called here: compiling either for one small
 batch takes many minutes on a CPU. Tolerance: exact bytes. The CUDA
-kernels themselves run only on the card (``test_kernels_on_card``,
-marked ``cuda``)."""
+kernels themselves run only on the card, in ``tests/test_torch_card.py``
+(marked ``cuda``), which imports no JAX so that it runs there."""
 import functools
 import hashlib
 
@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 from repro.core.crypto import aes, convergent  # noqa: E402
 from repro.core.crypto.sha256v import sha256_many_np  # noqa: E402
 from repro.kernels.aes.ops import encrypt_many_bitsliced  # noqa: E402
+from repro_torch.core.crypto import aes as port_aes  # noqa: E402
 from repro_torch.kernels.aes import ops as aops  # noqa: E402
 from repro_torch.kernels.fused import ops as fops  # noqa: E402
 from repro_torch.kernels.sha256 import ops as sops  # noqa: E402
@@ -50,6 +51,26 @@ def test_plain_sha_matches_numpy_lockstep_and_hashlib():
     wide = [_rand(n) for n in BOUNDARY + [127, 128, 129, 1000, 2048]]
     assert sops.sha256_many(wide, device="cpu") == \
         [hashlib.sha256(m).digest() for m in wide]
+
+
+@pytest.mark.parametrize("n", BOUNDARY + [512 << 10])
+def test_port_aes_copy_matches_jax_package(n):
+    """The port's own copy of the AES module, the card tests' oracle
+    (``tests/test_torch_card.py``), against the JAX package's: CTR of
+    `n` bytes, batched key schedules and block encryption."""
+    rng = np.random.default_rng(n)
+    keys = [rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+            for _ in range(3)]
+    data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    for k in keys:
+        assert port_aes.ctr_decrypt(data, k) == aes.ctr_decrypt(data, k)
+    rks = aes.expand_keys_many(keys)
+    assert np.array_equal(port_aes.expand_keys_many(keys), rks)
+    blocks = rng.integers(0, 256, (max(1, n // 16), 16), dtype=np.uint8)
+    per_block = rks[np.arange(len(blocks)) % len(keys)]
+    for schedule in (rks[0], per_block):
+        assert np.array_equal(port_aes.encrypt_blocks(blocks, schedule),
+                              aes.encrypt_blocks(blocks, schedule))
 
 
 def test_plain_aes_matches_encrypt_blocks_and_ctr():
@@ -104,27 +125,3 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors(wrapper, args):
     bad[0] = bad[0].to(torch.int32)
     with pytest.raises(TypeError):
         fn(*bad)
-
-
-@pytest.mark.cuda
-def test_kernels_on_card():
-    """The CUDA kernels against their plain versions and the oracles
-    (run on a machine with a card: ``pytest -m cuda``)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    from repro_torch import kernels
-    msgs = [_rand(n) for n in BOUNDARY + [70_000]]
-    keys = [_rand(32) for _ in msgs]
-    before = dict(kernels.LAUNCHES)
-    assert sops.sha256_many(msgs, device="cuda") == \
-        [hashlib.sha256(m).digest() for m in msgs]
-    dig, pts = fops.fused_verify_decrypt(msgs, keys, device="cuda")
-    assert dig == [hashlib.sha256(m).digest() for m in msgs]
-    assert pts == [aes.ctr_decrypt(m, k) for m, k in zip(msgs, keys)]
-    rks = aes.expand_keys_many(keys)
-    blocks = RNG.integers(0, 256, (len(keys) * 40, 16), dtype=np.uint8)
-    counts = np.full(len(keys), 40)
-    assert np.array_equal(
-        aops.encrypt_many(blocks, rks, counts=counts, device="cuda"),
-        aops.encrypt_many(blocks, rks, counts=counts, device="cpu"))
-    assert all(kernels.LAUNCHES[k] == before[k] + 1 for k in before)
