@@ -24,8 +24,16 @@ Phases (any failure exits non-zero):
    matrix product) against their plain versions and numpy (XOR,
    ``erasure.gf_matmul``) on stripe lengths 0, 1, 3, 5, 15, 16, 17 and
    131072, with ``encode_matrix(4, 6)``'s parity rows, a random (8, 8)
-   matrix and a (16, 16) matrix holding all 256 coefficients; parity is
-   timed on one ``put_chunk``'s (4, 131072) stripes.
+   matrix and a (16, 16) matrix holding all 256 coefficients; parity
+   also for k = 1, 2, 3, 5, 8, 9, on those lengths and 131073, and with
+   the data 1, 4 and 8 bytes off the 16-byte grid; parity is timed on
+   one ``put_chunk``'s (4, 131072) stripes beside an empty kernel of
+   the same grid (the card's floor for one launch). The AES kernel's
+   risky inputs against its plain version and ``aes.encrypt_blocks``:
+   run lengths (1, 31, 33, 40, 32768) in one call, N = 1, 31, 33, 257
+   blocks (one schedule per block, and in runs), AES-128 schedules, a
+   batch giving every lane of a warp every byte value in every state
+   position, and the FIPS-197 AES-128 and AES-256 example vectors.
 3. main path — SmolLM-360M at full width (random weights from
    ``--seed``): ``ImageService.publish`` (SHA and AES kernels),
    ``cold_start`` through a second service on the same store, whose L1
@@ -69,11 +77,17 @@ sys.path.insert(0, str(ROOT / "src"))
 # which counts an FMA as two).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# Shared memory serves one wavefront a cycle per SM (132 SMs at the
+# 1.98 GHz boost clock); a warp's read whose 32 lanes hit 32 different
+# banks is one wavefront, so a table read costs at least 1/32 of one.
+SMEM_WAVEFRONTS_PER_S = 132 * 1.98e9
 # Operations are counted as the fewest 32-bit instructions that
-# crypto_common.cuh's bodies need at that rate: a 3-input logic op is one
-# LOP3, a 3-input add one IADD3, a rotate one SHF, a byte extract or
-# byte swap one PRMT, a table read one op; address arithmetic is not
-# counted. Each count is a floor, so each bound is a least time.
+# crypto_common.cuh's bodies need at the INT32 rate: a 3-input logic op
+# is one LOP3, a 3-input add one IADD3, a rotate one SHF, a byte extract
+# or byte swap one PRMT; address arithmetic is not counted. A table read
+# is an LDS on the shared-memory pipe, which issues beside the INT32
+# pipe, so table reads are a term of their own: wavefronts at the rate
+# above. Each count is a floor, so each bound is a least time.
 # SHA-256 per 64-byte block: 16 byte swaps; schedule 48 x 10 (per sigma
 # 2 SHF + 1 shift + 1 LOP3; 2 adds); rounds 64 x 14 (per Sigma 3 SHF +
 # 1 LOP3; ch and maj 1 LOP3 each; t1 2 IADD3; a and e 1 add each);
@@ -90,17 +104,21 @@ SHA_OPS_PER_BLOCK = 16 + 48 * 10 + 64 * 14 + 8
 SHA_CHAIN_INSNS_PER_ROUND = 14
 CHAIN_ISSUE_PER_S = 1.98e9
 # AES-256 per 16-byte block (T-table): initial key xor 4; 13 middle
-# rounds x 40 (per column 4 byte extracts, 4 table reads, 2 LOP3 for the
-# five-way xor); final round 48 (per column 4 extracts, 4 S-box reads,
-# 3 PRMT to assemble the word, 1 key xor).
-AES_OPS_PER_BLOCK = 4 + 13 * 40 + 48
+# rounds x 24 (per column 4 byte extracts, 2 LOP3 for the five-way xor);
+# final round 32 (per column 4 extracts, 3 PRMT to assemble the word, 1
+# key xor). Table reads: 16 a round, 14 rounds (the last reads S-box
+# bytes).
+AES_OPS_PER_BLOCK = 4 + 13 * 24 + 32
+AES_READS_PER_BLOCK = 14 * 16
 # Erasure kernels per 32-bit word (four bytes) of an output row that sums
 # m terms: the XOR of m words is ceil((m - 1) / 2) LOP3s (three inputs
-# each); a term whose coefficient is neither 0 nor 1 also costs 11 (4
-# byte extracts, 4 product-table reads, 3 PRMT to reassemble the word).
-# Parity is one row of k ones. The 4-of-5 code's reconstruction matrices
-# hold only 0 and 1, so on the L2 path both kernels are XOR only.
-GF_GENERAL_TERM_OPS = 11
+# each); a term whose coefficient is neither 0 nor 1 also costs 7 ops (4
+# byte extracts, 3 PRMT to reassemble the word) and 4 product-table
+# reads. Parity is one row of k ones. The 4-of-5 code's reconstruction
+# matrices hold only 0 and 1, so on the L2 path both kernels are XOR
+# only.
+GF_GENERAL_TERM_OPS = 7
+GF_GENERAL_TERM_READS = 4
 # queued_ms: a spin of 2e8 cycles lasts ~100 ms at the H100's 1.98 GHz
 # boost clock (longer at lower clocks); the runs must be enqueued in less
 SPIN_CYCLES = 200_000_000
@@ -115,6 +133,20 @@ MIXED_GROUP = (0, 1, 55, 64, 65, KIB512, KEY_DERIVATION)
 ENGINE_BATCHES = (1, 31, 33, 257)       # not multiples of either kernel's G
 UNALIGNED = (0, 1, 55, 56, 63, 64, 65, 127, 128, 129, 300, 5000, 17, 31,
              48, 65536, KEY_DERIVATION)
+# the AES kernel's risky inputs: run lengths that make warps and tiles
+# straddle chunks, block counts off the warp size, and the two FIPS-197
+# example vectors (Appendix C.1, AES-128, and C.3, AES-256): key bytes
+# 00 01 02 ..., plaintext 00 11 22 ... ff
+AES_BOUNDARY_COUNTS = (1, 31, 33, 40, 32768)
+AES_BATCHES = (1, 31, 33, 257)
+FIPS197_PLAIN = bytes.fromhex("00112233445566778899aabbccddeeff")
+FIPS197 = {16: "69c4e0d86a7b0430d8cdb78070b4c55a",
+           32: "8ea2b7ca516745bfeafc49904b496089"}
+# parity's risky inputs: k off the L2's 4 (1 and 9 take the runtime-k
+# loop), a stripe one byte past the L2's, data off the 16-byte grid
+PARITY_KS = (1, 2, 3, 5, 8, 9)
+PARITY_LENGTHS = STRIPE_LENGTHS + (STRIPE + 1,)
+PARITY_OFFSETS = (1, 4, 8)
 # kernel -> (source, TPU kernel it replaces, phase whose run counts it)
 TPU_KERNELS = {
     "fused_verify_decrypt": ("src/repro_torch/csrc/fused.cu",
@@ -158,12 +190,15 @@ def sha_blocks(lengths) -> int:
     return sum((int(n) + 72) // 64 for n in lengths)
 
 
-def bound(nbytes: float, ops: float, chain_blocks: int = 0) -> tuple:
+def bound(nbytes: float, ops: float, chain_blocks: int = 0,
+          reads: float = 0) -> tuple:
     """(least ms, what sets it): the larger of the bytes over the HBM
-    rate, the operations over the INT32 rate and, for SHA-256, the
-    longest message's chain of `chain_blocks` blocks (see above)."""
+    rate, the operations over the INT32 rate, the table `reads` as
+    shared-memory wavefronts and, for SHA-256, the longest message's
+    chain of `chain_blocks` blocks (see above)."""
     terms = {"bytes": nbytes / HBM_BYTES_PER_S,
              "operations": ops / INT32_OPS_PER_S,
+             "shared memory": reads / 32 / SMEM_WAVEFRONTS_PER_S,
              "chain": chain_blocks * 64 * SHA_CHAIN_INSNS_PER_ROUND
              / CHAIN_ISSUE_PER_S}
     by = max(terms, key=terms.get)
@@ -217,16 +252,18 @@ def wall_ms(fn) -> tuple:
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def gf_ops(matrix, width: int) -> int:
-    """Fewest 32-bit operations of `matrix` x (k, `width`) bytes (see
-    GF_GENERAL_TERM_OPS)."""
+def gf_work(matrix, width: int) -> tuple:
+    """(fewest 32-bit operations, table reads) of `matrix` x (k, `width`)
+    bytes (see GF_GENERAL_TERM_OPS)."""
     words = (width + 3) // 4
-    ops = 0
+    ops = reads = 0
     for row in matrix:
         terms = [int(c) for c in row if c]
+        general = sum(c != 1 for c in terms)
         ops += words * (max(0, -(-(len(terms) - 1) // 2))
-                        + GF_GENERAL_TERM_OPS * sum(c != 1 for c in terms))
-    return ops
+                        + GF_GENERAL_TERM_OPS * general)
+        reads += words * GF_GENERAL_TERM_READS * general
+    return ops, reads
 
 
 def max_abs_err(a, b) -> int:
@@ -345,9 +382,11 @@ def phase_kernels(rng, tile_chunks: int, tile_len: int) -> dict:
     n = ctr.shape[0]
     rows["aes_encrypt_many"] = dict(
         ms=ms, plain_ms=plain_ms, max_abs_err=err,
-        bound=bound(36 * n + rks_np.nbytes, n * AES_OPS_PER_BLOCK))
-    log(f"aes: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-        f"{16 * n / ms / 1e6:.3f} GB/s at {n} blocks")
+        bound=bound(36 * n + rks_np.nbytes, n * AES_OPS_PER_BLOCK,
+                    reads=n * AES_READS_PER_BLOCK))
+    log(f"aes: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+        f"{16 * n / ms / 1e6:.3f} GB/s at {n} blocks; geometry "
+        f"{aops.geometry(n)}")
     del blocks, idx, ka, pa
 
     # ---------------- fused verify+decrypt
@@ -384,7 +423,8 @@ def phase_kernels(rng, tile_chunks: int, tile_len: int) -> dict:
     rows["fused_verify_decrypt"] = dict(
         ms=ms, plain_ms=plain_ms, max_abs_err=err,
         bound=bound(2 * nbytes + tile_chunks * (32 + 16 + 240), ops,
-                    sha_blocks([tile_len])))
+                    sha_blocks([tile_len]),
+                    tile_chunks * (tile_len // 16) * AES_READS_PER_BLOCK))
     log(f"fused: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
         f"{nbytes / ms / 1e6:.3f} GB/s at {tile_chunks} x {tile_len} B")
     del pp, pdg, kp
@@ -485,10 +525,96 @@ def phase_engine_cases(rng) -> None:
     case("unaligned starts", UNALIGNED, misalign=True)
 
 
-def phase_erasure_kernels(rng) -> dict:
-    """Parity and GF(256) against their plain versions and numpy, then
-    parity timed at one ``put_chunk``'s shape. The GF(256) row is timed
-    after phase 4 (``time_gf256``), at the shape phase 4 gave it."""
+def phase_aes_cases(rng) -> None:
+    """The AES kernel's risky inputs (AES_BOUNDARY_COUNTS, AES_BATCHES, the
+    FIPS-197 vectors), AES-128 schedules, and one batch in which every
+    lane of a warp meets every byte value in every state position, each
+    against the plain version and ``aes.encrypt_blocks`` byte for byte."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.crypto import aes
+    from repro_torch.kernels.aes import ops as aops
+
+    dev = torch.device("cuda")
+
+    def case(label, blocks, keys, idx):
+        rks = aes.expand_keys_many(keys)
+        b = torch.from_numpy(blocks).to(dev)
+        r = torch.from_numpy(rks.view(np.int32)).to(dev)
+        i = torch.from_numpy(idx.astype(np.int32)).to(dev)
+        got = aops.aes_encrypt_blocks(b, r, i)
+        check(torch.equal(got, aops.aes_encrypt_blocks_plain(b, r, i)),
+              f"aes kernel != plain, {label}")
+        out = got.cpu().numpy()
+        check(np.array_equal(out, aes.encrypt_blocks(blocks, rks[idx])),
+              f"aes kernel != encrypt_blocks, {label}")
+        log(f"aes case {label}: {len(blocks)} blocks, {len(keys)} "
+            f"schedules, kernel == plain == encrypt_blocks")
+        return out
+
+    def keys(n, size=32):
+        return [rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+                for _ in range(n)]
+
+    def runs(counts):
+        return np.repeat(np.arange(len(counts)), counts)
+
+    def rand(n):
+        return rng.integers(0, 256, (n, 16), dtype=np.uint8)
+
+    c = AES_BOUNDARY_COUNTS
+    case(f"counts {list(c)}", rand(sum(c)), keys(len(c)), runs(c))
+    # the same through the host hook's run-length protocol
+    rks = aes.expand_keys_many(keys(len(c)))
+    blocks = rand(sum(c))
+    got = aops.encrypt_many(blocks, rks, counts=np.array(c), device=dev)
+    check(np.array_equal(got, aes.encrypt_blocks(blocks, rks[runs(c)])),
+          "aes encrypt_many(counts=) != encrypt_blocks")
+    for n in AES_BATCHES:
+        case(f"N={n}, one schedule per block", rand(n), keys(n), np.arange(n))
+        split = np.sort(rng.integers(0, n + 1, 2))
+        cn = np.diff([0, *split, n])
+        case(f"N={n}, runs {cn.tolist()}", rand(n), keys(3), runs(cn))
+    case("AES-128 runs (7, 300, 2000)", rand(2307), keys(3, 16),
+         runs((7, 300, 2000)))
+    case("AES-128, one schedule per block", rand(257), keys(257, 16),
+         np.arange(257))
+    every = np.repeat(((np.arange(256 * 32) // 32) % 256)
+                      .astype(np.uint8)[:, None], 16, axis=1)
+    case("every byte value at every position and lane", every, keys(1),
+         np.zeros(len(every), np.int64))
+    for size, want in FIPS197.items():
+        key = bytes(range(size))
+        out = case(f"FIPS-197 AES-{8 * size}",
+                   np.frombuffer(FIPS197_PLAIN, np.uint8)[None].copy(),
+                   [key], np.zeros(1, np.int64))
+        check(out.tobytes().hex() == want,
+              f"aes kernel != FIPS-197 AES-{8 * size} vector")
+
+
+def empty_launcher(kernels, n: int):
+    """A function that launches ``csrc/parity.cu``'s empty kernel with the
+    grid parity takes for aligned (k, `n`) stripes (counted nowhere)."""
+    import ctypes
+
+    import torch
+    fn = kernels.library("parity").parity_empty_launch
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        err = fn(n, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"empty kernel launch failed: CUDA error {err}")
+    return launch
+
+
+def phase_erasure_kernels(rng, kernels) -> dict:
+    """Parity and GF(256) against their plain versions and numpy (parity
+    also at PARITY_KS, PARITY_LENGTHS and PARITY_OFFSETS), then parity
+    timed at one ``put_chunk``'s shape beside an empty kernel of the same
+    grid. The GF(256) row is timed after phase 4 (``time_gf256``), at the
+    shape phase 4 gave it."""
     import numpy as np
     import torch
 
@@ -517,23 +643,52 @@ def phase_erasure_kernels(rng) -> dict:
             check(np.array_equal(kg.cpu().numpy(), erasure.gf_matmul(m, d)),
                   f"gf256 kernel != erasure.gf_matmul, {label}, length {n}")
             err_g = max(err_g, max_abs_err(kg, gops.gf_matmul_plain(mt, dt)))
+    for k in PARITY_KS:
+        for n in PARITY_LENGTHS:
+            d = rng.integers(0, 256, (k, n), dtype=np.uint8)
+            t = torch.from_numpy(d).to(dev)
+            kp = pops.parity(t)
+            check(np.array_equal(kp.cpu().numpy(),
+                                 np.bitwise_xor.reduce(d, axis=0)),
+                  f"parity kernel != numpy XOR, k={k}, length {n}")
+            err_p = max(err_p, max_abs_err(kp, pops.parity_plain(t)))
+    for off in PARITY_OFFSETS:
+        for n in PARITY_LENGTHS[1:]:
+            d = rng.integers(0, 256, (4, n), dtype=np.uint8)
+            buf = torch.zeros(4 * n + off, dtype=torch.uint8, device=dev)
+            t = buf[off:].view(4, n)
+            t.copy_(torch.from_numpy(d))
+            check(t.data_ptr() % 16 == off, "offset view not off the grid")
+            kp = pops.parity(t)
+            check(np.array_equal(kp.cpu().numpy(),
+                                 np.bitwise_xor.reduce(d, axis=0)),
+                  f"parity kernel != numpy XOR, base {off} bytes off the "
+                  f"grid, length {n}")
+            err_p = max(err_p, max_abs_err(kp, pops.parity_plain(t)))
     check(err_p == 0, "parity kernel != plain")
     check(err_g == 0, "gf256 kernel != plain")
+    log(f"parity: equal to numpy and plain for k in {list(PARITY_KS)} on "
+        f"lengths {list(PARITY_LENGTHS)}, and with the data "
+        f"{list(PARITY_OFFSETS)} bytes off the 16-byte grid")
     log(f"erasure kernels: parity and gf256 equal numpy and their plain "
         f"versions on stripe lengths {list(STRIPE_LENGTHS)}, matrices "
         f"{list(mats)}")
     d = torch.from_numpy(rng.integers(0, 256, (4, STRIPE),
                                       dtype=np.uint8)).to(dev)
+    empty = empty_launcher(kernels, STRIPE)
+    floor_ms = queued_ms(empty, 200)
     ms = queued_ms(lambda: pops.parity(d), 200)
     plain_ms = queued_ms(lambda: pops.parity_plain(d), 100)
     call_ms = cuda_ms(lambda: pops.parity(d), 200)
-    log(f"parity: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us "
-        f"at (4, {STRIPE}) bytes (device time, queued); one call back to "
-        f"back with the next, host included: {call_ms * 1e3:.2f} us")
+    log(f"parity: kernel {ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us "
+        f"at (4, {STRIPE}) bytes (device time, queued); the card's floor "
+        f"for one launch (an empty kernel of the same grid, queued): "
+        f"{floor_ms * 1e3:.3f} us; one call back to back with the next, "
+        f"host included: {call_ms * 1e3:.2f} us")
     return {"parity": dict(ms=ms, plain_ms=plain_ms, max_abs_err=err_p,
-                           call_ms=call_ms,
-                           bound=bound(5 * STRIPE,
-                                       gf_ops(np.ones((1, 4)), STRIPE))),
+                           call_ms=call_ms, launch_floor_ms=floor_ms,
+                           bound=bound(5 * STRIPE, gf_work(
+                               np.ones((1, 4)), STRIPE)[0])),
             "gf256_check_err": err_g}
 
 
@@ -558,11 +713,12 @@ def time_gf256(rng, matrix, width: int, err: int) -> dict:
     plain_ms = queued_ms(lambda: gops.gf_matmul_plain(m, d), 2)
     r, k = matrix.shape
     nbytes = (r + k) * width + r * k
+    ops, reads = gf_work(matrix, width)
     log(f"gf256: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
         f"{nbytes / ms / 1e6:.1f} GB/s at ({r}, {k}) x ({k}, {width}), "
         f"matrix {matrix.tolist()}")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                bound=bound(nbytes, gf_ops(matrix, width)))
+                bound=bound(nbytes, ops, reads=reads))
 
 
 # ------------------------------------------------------------- phase 3
@@ -822,7 +978,8 @@ def main() -> int:
         rng = np.random.default_rng(args.seed)
         rows = phase_kernels(rng, 256, KIB512)
         phase_engine_cases(rng)
-        erasure_rows = phase_erasure_kernels(rng)
+        phase_aes_cases(rng)
+        erasure_rows = phase_erasure_kernels(rng, kernels)
         rows["parity"] = erasure_rows["parity"]
         main_path, ctx = phase_main_path(args.seed, kernels, tmp)
         l2_path, largest = phase_l2_path(kernels, ctx)
@@ -853,6 +1010,7 @@ def main() -> int:
     summary = {k: v for k, v in main_path.items() if k != "launches"}
     summary["tile_effect"] = rows["tile_effect"]
     summary["parity_call_ms"] = rows["parity"]["call_ms"]
+    summary["parity_launch_floor_ms"] = rows["parity"]["launch_floor_ms"]
     summary["l2_path"] = {k: v for k, v in l2_path.items()
                           if k != "launches"}
     summary["smoke_seconds"] = time.perf_counter() - t_all

@@ -94,6 +94,11 @@ def aes_encrypt_blocks(blocks: torch.Tensor, rks: torch.Tensor,
         return aes_encrypt_blocks_plain(blocks, rks, chunk_idx)
     if dev.type != "cuda":
         raise ValueError(f"aes_encrypt_blocks runs on cuda or cpu, not {dev}")
+    # the kernel moves blocks and round keys as 16-byte words
+    if blocks.data_ptr() % 16:
+        blocks = blocks.clone()
+    if rks.data_ptr() % 16:
+        rks = rks.clone()
     n = blocks.shape[0]
     out = torch.empty((n, 16), dtype=torch.uint8, device=dev)
     if n:
@@ -101,6 +106,16 @@ def aes_encrypt_blocks(blocks: torch.Tensor, rks: torch.Tensor,
                        chunk_idx.data_ptr(), rks.data_ptr(),
                        rks.shape[1] - 1, n, out.data_ptr())
     return out
+
+
+GEOMETRY_KEYS = ("threads", "blocks_per_thread", "key_slots", "smem_bytes",
+                 "blocks_per_sm", "sms", "grid")
+
+
+def geometry(n: int) -> dict:
+    """The kernel's launch geometry for `n` blocks (GEOMETRY_KEYS), as
+    ``csrc/aes.cu`` computes it on the current card."""
+    return kernels.geometry("aes", "aes_geometry", n, GEOMETRY_KEYS)
 
 
 def encrypt_many(blocks_u8: np.ndarray, rks: np.ndarray, *,

@@ -1,10 +1,12 @@
-"""The port's SHA-256 and fused verify+decrypt wrappers on the inputs the
-warp-specialised SHA engine (``csrc/sha256_engine.cuh``) makes risky:
-one group mixing lengths 0 to 512 KiB, batch sizes that are not
-multiples of the group size G (32 messages per block for SHA-256, 8 for
-the fused kernel), message starts off the 16-byte grid, and
-the key-derivation length (a 16-byte salt and a 512 KiB chunk). Oracles:
-hashlib and the port's numpy AES-CTR; exact bytes.
+"""The port's SHA-256, fused verify+decrypt and AES wrappers on the
+inputs their kernels make risky. For the warp-specialised SHA engine
+(``csrc/sha256_engine.cuh``): one group mixing lengths 0 to 512 KiB,
+batch sizes that are not multiples of the group size G (32 messages per
+block for SHA-256, 8 for the fused kernel), message starts off the
+16-byte grid, and the key-derivation length (a 16-byte salt and a
+512 KiB chunk). For the AES kernel (``csrc/aes.cu``): the cases listed
+above its tests below. Oracles: hashlib and the port's numpy AES; exact
+bytes.
 
 Each case runs on the CPU through the plain versions (at lengths a CPU
 hashes in seconds) and, marked ``cuda``, through the kernels on a card:
@@ -163,3 +165,106 @@ def test_launch_geometry_on_card():
     assert f["group"] == 8 and hb == -(-257 // 8)
     assert f["ctr_blocks"] == (sms - hb if hb < sms else sms)
     assert f["smem_bytes"] >= s["smem_bytes"]
+
+
+# ------------------------------------------------------------------ AES
+# The AES kernel's risky inputs: tiles and warps straddling chunks, block
+# counts off the warp size, one schedule per block (the kernel then reads
+# its keys from device memory), AES-128, every byte value at every state
+# position and lane, and the FIPS-197 example vectors (Appendix C.1 and
+# C.3: key bytes 00 01 02 ..., plaintext 00 11 22 ... ff).
+FIPS197_PLAIN = bytes.fromhex("00112233445566778899aabbccddeeff")
+FIPS197 = {16: "69c4e0d86a7b0430d8cdb78070b4c55a",
+           32: "8ea2b7ca516745bfeafc49904b496089"}
+
+
+def _aes_check(dev, blocks, keys, idx) -> np.ndarray:
+    """The tensor wrapper on `dev` against ``aes.encrypt_blocks`` and, on
+    the card, the plain version; returns the ciphertext."""
+    rks = aes.expand_keys_many(keys)
+    b = torch.from_numpy(blocks).to(dev)
+    r = torch.from_numpy(rks.view(np.int32)).to(dev)
+    i = torch.from_numpy(np.asarray(idx, np.int32)).to(dev)
+    got = aops.aes_encrypt_blocks(b, r, i)
+    out = got.cpu().numpy()
+    assert np.array_equal(out, aes.encrypt_blocks(blocks, rks[idx]))
+    if dev.type == "cuda":
+        assert torch.equal(got, aops.aes_encrypt_blocks_plain(b, r, i))
+    return out
+
+
+def _aes_inputs(seed: int, counts, key_size=32):
+    rng = np.random.default_rng(seed)
+    keys = [rng.integers(0, 256, key_size, dtype=np.uint8).tobytes()
+            for _ in counts]
+    blocks = rng.integers(0, 256, (int(sum(counts)), 16), dtype=np.uint8)
+    return blocks, keys, np.repeat(np.arange(len(counts)), counts)
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_aes_chunk_boundaries(device):
+    """Runs of 1, 31, 33, 40 and 32768 blocks (64 on the CPU) in one
+    call, through the tensor wrapper and the run-length host hook."""
+    dev = _device(device)
+    counts = (1, 31, 33, 40, 32768 if dev.type == "cuda" else 64)
+    blocks, keys, idx = _aes_inputs(14, counts)
+    _aes_check(dev, blocks, keys, idx)
+    rks = aes.expand_keys_many(keys)
+    assert np.array_equal(
+        aops.encrypt_many(blocks, rks, counts=np.array(counts), device=dev),
+        aes.encrypt_blocks(blocks, rks[idx]))
+
+
+@pytest.mark.parametrize("device", DEVICES)
+@pytest.mark.parametrize("n", [1, 31, 33, 257])
+def test_aes_block_counts(device, n):
+    """N blocks under one schedule each, and in three runs."""
+    dev = _device(device)
+    blocks, keys, _ = _aes_inputs(n, [1] * n)
+    _aes_check(dev, blocks, keys, np.arange(n))
+    split = np.sort(np.random.default_rng(n).integers(0, n + 1, 2))
+    blocks, keys, idx = _aes_inputs(n + 1, np.diff([0, *split, n]))
+    _aes_check(dev, blocks, keys, idx)
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_aes_128(device):
+    """(C, 11, 4) schedules, in runs and one per block."""
+    dev = _device(device)
+    _aes_check(dev, *_aes_inputs(128, (7, 300, 2000), key_size=16))
+    blocks, keys, _ = _aes_inputs(129, [1] * 257, key_size=16)
+    _aes_check(dev, blocks, keys, np.arange(257))
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_aes_every_byte_value(device):
+    """Block i holds byte (i // 32) % 256 in all 16 positions, so in the
+    first round every lane of a warp looks up every byte value at every
+    position: a wrong entry of a replicated table shows on its own."""
+    dev = _device(device)
+    blocks = np.repeat(((np.arange(256 * 32) // 32) % 256)
+                       .astype(np.uint8)[:, None], 16, axis=1)
+    _, keys, _ = _aes_inputs(256, [1])
+    _aes_check(dev, blocks, keys, np.zeros(len(blocks), np.int64))
+
+
+@pytest.mark.parametrize("device", DEVICES)
+@pytest.mark.parametrize("key_size", [16, 32])
+def test_aes_fips197_vectors(device, key_size):
+    dev = _device(device)
+    out = _aes_check(dev, np.frombuffer(FIPS197_PLAIN, np.uint8)[None].copy(),
+                     [bytes(range(key_size))], np.zeros(1, np.int64))
+    assert out.tobytes().hex() == FIPS197[key_size]
+
+
+@pytest.mark.cuda
+def test_aes_launch_geometry_on_card():
+    """Persistent blocks: the SM count times the blocks an SM holds, at
+    the publish tile; fewer when the blocks make fewer tiles."""
+    _device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = aops.geometry(8_388_608)
+    assert g["sms"] == sms and g["blocks_per_sm"] >= 1
+    assert g["grid"] == sms * g["blocks_per_sm"]
+    tile = g["threads"] * g["blocks_per_thread"]
+    assert aops.geometry(3 * tile)["grid"] == 3

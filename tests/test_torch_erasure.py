@@ -2,8 +2,8 @@
 kernels (XOR parity, GF(256) matrix product) against the JAX package:
 its numpy ``ErasureCoder`` and ``gf_matmul``, and its parity and
 Reed-Solomon Pallas kernels in interpret mode. Tolerance: exact bytes.
-The CUDA kernels themselves run only on the card (the tests marked
-``cuda``)."""
+The CUDA kernels themselves run on the card in
+``tests/test_torch_card_l2.py``, which imports no jax."""
 import itertools
 
 import numpy as np
@@ -123,34 +123,3 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors(wrapper):
         call("meta")
     with pytest.raises(TypeError):
         call("cpu", torch.int32)
-
-
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    from repro_torch import kernels
-    return kernels
-
-
-@pytest.mark.cuda
-def test_parity_kernel_on_card():
-    kernels = _card()
-    before = kernels.LAUNCHES["parity"]
-    for L in STRIPE_LENS + [131072]:
-        d = torch.from_numpy(_rand(4, L)).cuda()
-        assert torch.equal(pops.parity(d), pops.parity_plain(d))
-    assert kernels.LAUNCHES["parity"] == before + len(STRIPE_LENS)
-
-
-@pytest.mark.cuda
-def test_gf256_kernel_on_card():
-    kernels = _card()
-    before = kernels.LAUNCHES["gf256"]
-    mats = [jer.encode_matrix(4, 6)[4:], _rand(8, 8), ALL_COEFFS]
-    for L in STRIPE_LENS[1:] + [131072]:
-        for m in mats:
-            mt = torch.from_numpy(m).cuda()
-            d = torch.from_numpy(_rand(m.shape[1], L)).cuda()
-            assert torch.equal(gops.gf_matmul(mt, d),
-                               gops.gf_matmul_plain(mt, d))
-    assert kernels.LAUNCHES["gf256"] == before + len(STRIPE_LENS) * len(mats)
