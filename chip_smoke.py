@@ -51,8 +51,27 @@ Phases (any failure exits non-zero):
    A third worker restores streamed from the same L2 (byte check). The
    GF(256) kernel is then timed at the largest erasure-signature group
    of B's reconstruction.
+5. peer storm — on phase 3's image, a cold-start storm through the peer
+   tier with a flaky origin (``FaultyStore``, 2% transient GET errors):
+   workers 0-3, each an ``ImageService`` with an empty 256 MiB L1, no
+   L2, retries (5 attempts) and a 50% circuit breaker, and its client
+   of one 5-worker ``PeerMesh`` (binary provisioning trees), start
+   together on their own threads (streamed reads, fused kernel). Worker
+   0 cold-starts SmolLM-360M and serves phase 3's requests; workers 1-3
+   restore the tree. The first worker that leads at most 1% of the
+   flights and has served 200 transfers stops serving (crashed) while
+   its own restore goes on. Checks:
+   every tree and worker 0's tokens equal phase 3's; the fleet's origin
+   GETs lie between the distinct chunk count and twice it; peer
+   transfers happened and the crash fired; transient errors were
+   retried with no giveup and the breaker never opened; at least four
+   restores' worth of fused launches. Then one chunk's copy in the mesh
+   is replaced by a one-byte-flipped one, and worker 4 (idle so far)
+   restores: the fused kernel flags that chunk, the reader evicts it
+   mesh-wide and restarts, the restart takes exactly one origin GET,
+   and the restored tree is byte-identical.
 
-The last lines are the launch counts of phases 3 and 4, the kernel
+The last lines are the launch counts of phases 3, 4 and 5, the kernel
 table (``{"kernels": [...]}``, each kernel's launches counted on the path
 that runs it), the ``nvidia-smi`` name/power-limit line and
 ``{"ok": true, "device": {...}}``.
@@ -162,7 +181,37 @@ TPU_KERNELS = {
 }
 PATH_KERNELS = {3: ("fused_verify_decrypt", "sha256_many",
                     "aes_encrypt_many"),
-                4: ("parity", "gf256", "fused_verify_decrypt")}
+                4: ("parity", "gf256", "fused_verify_decrypt"),
+                5: ("fused_verify_decrypt",)}
+# phase 5: the storm's workers (worker STORM_WORKERS idles until the
+# poisoned-copy restore). Every worker asks for the image's chunks in
+# the same order, so the first to probe leads nearly every flight (on
+# an H100 one worker led all 2762 of this image's). The peer that
+# crashes is therefore the first worker to have served
+# CRASH_AFTER_TRANSFERS transfers while leading at most 1% of the
+# flights: a tree or holder peer, not the leader, whose crash would
+# orphan every later flight. The binary tree (fanout 2) makes a
+# non-leading joiner the parent of the third joiner, so such a peer
+# serves in every ordering of the race (with fanout 4 and three joiners
+# only the leader serves the tree).
+STORM_WORKERS = 4
+STORM_FANOUT = 2
+CRASH_AFTER_TRANSFERS = 200
+CRASH_MAX_LED_SHARE = 0.01
+ORIGIN_ERROR_P = 0.02
+STORM_TIMEOUT_S = 300
+PEER_COUNTERS = ("peer.transfers", "peer.direct_hits", "peer.tree_hits",
+                 "peer.joins", "peer.misses", "peer.promotions",
+                 "peer.dead_peer_fallthroughs", "peer.deadline_fallthroughs",
+                 "peer.registered_chunks", "read.peer_hits",
+                 "read.peer_fallthroughs", "peer.tree_repairs",
+                 "peer.abandoned_leases")
+RESILIENCE_COUNTERS = ("retry.attempts", "retry.retries", "retry.backoff_s",
+                       "retry.giveups", "retry.budget_exhausted",
+                       "retry.integrity_refetches", "breaker.opened",
+                       "breaker.half_opens", "breaker.probes",
+                       "breaker.closed", "breaker.shed",
+                       "faults.origin_transient")
 
 
 class SmokeFailure(RuntimeError):
@@ -942,6 +991,243 @@ def phase_l2_path(kernels, ctx: dict) -> tuple:
     return out, largest
 
 
+# ------------------------------------------------------------- phase 5
+
+def _deltas(before: dict, names) -> dict:
+    from repro_torch.core.telemetry import COUNTERS
+    return {k: COUNTERS.get(k) - before.get(k, 0.0) for k in names}
+
+
+def _pct(xs, q) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, float), q)) if xs else 0.0
+
+
+def phase_peer_storm(seed: int, kernels, ctx: dict,
+                     fused_per_restore: int) -> dict:
+    """The cold-start storm through the peer tier, then the poisoned
+    peer copy (module doc, phase 5)."""
+    import threading
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.cache.distributed import FaultPlan
+    from repro_torch.core.faults import FaultyStore, OriginFaultPlan
+    from repro_torch.core.manifest import ZERO_CHUNK, open_manifest
+    from repro_torch.core.service import ImageService, ServiceConfig, \
+        build_peer_mesh
+    from repro_torch.core.telemetry import COUNTERS
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve.coldstart import cold_start
+    from repro_torch.serve.engine import Request
+
+    t_phase = time.perf_counter()
+    store, blob, key = ctx["store"], ctx["blob"], ctx["key"]
+    unique = ctx["unique_chunks"]
+    origin = FaultyStore(store, OriginFaultPlan.flaky(error_p=ORIGIN_ERROR_P),
+                         seed=seed)
+    cfg = ServiceConfig(device="cuda", root="r0", retry_attempts=5,
+                        retry_seed=seed, breaker_threshold=0.5,
+                        peer_fanout=STORM_FANOUT)
+    crash = {}
+    crash_lock = threading.Lock()
+    led = [0] * (STORM_WORKERS + 1)     # flights each worker's probe led
+
+    def crash_hook(name, src, dst):
+        # `led` counts a worker's leads when its probe returns; a leader
+        # serves its flights only after that
+        if crash or mesh.workers[src].served < CRASH_AFTER_TRANSFERS \
+                or led[src] > CRASH_MAX_LED_SHARE * unique:
+            return
+        with crash_lock:
+            if not crash:
+                crash.update(worker=src, served=mesh.workers[src].served,
+                             led=led[src],
+                             at_s=time.perf_counter() - t_phase)
+                mesh.set_fault(src, FaultPlan.crashed())
+    mesh = build_peer_mesh(cfg, STORM_WORKERS + 1, seed=seed,
+                           transfer_hook=crash_hook)
+    # how long each joined flight kept its joiner waiting
+    waits, waits_lock = [], threading.Lock()
+
+    def timed_join(client):
+        join_wait = client._join_wait
+
+        def wrapped(name, flight):
+            t0 = time.perf_counter()
+            try:
+                return join_wait(name, flight)
+            finally:
+                with waits_lock:
+                    waits.append(time.perf_counter() - t0)
+        return wrapped
+
+    def counted_probe(client):
+        probe = client.probe_chunks
+
+        def wrapped(names, chunk_len, on_ready):
+            leads, futs = probe(names, chunk_len, on_ready)
+            led[client.wid] += len(leads)
+            return leads, futs
+        return wrapped
+    clients = [mesh.client(i) for i in range(STORM_WORKERS + 1)]
+    for c in clients:
+        c._join_wait = timed_join(c)
+        c.probe_chunks = counted_probe(c)
+    svcs = [ImageService(origin, cfg, peer=clients[i])
+            for i in range(STORM_WORKERS)]
+    model = DecoderLM(get_config("smollm-360m"), device="cuda")
+    digests, times, splits, errors, engine = {}, {}, {}, [], {}
+    load_flat = model.load_flat
+
+    def capture(flat):
+        digests[0] = tree_digests(flat)
+        return load_flat(flat)
+    model.load_flat = capture
+    barrier = threading.Barrier(STORM_WORKERS)
+
+    def work(i):
+        try:
+            barrier.wait(timeout=120)
+            t0 = time.perf_counter()
+            if i == 0:
+                engine[0], lb = cold_start(model, blob, key, svcs[0])
+                times[0] = (t0, time.perf_counter(), lb["restore_seconds"],
+                            lb["load_seconds"])
+            else:
+                h = svcs[i].open(blob, key)
+                tree = h.restore_tree()
+                t1 = time.perf_counter()
+                digests[i] = tree_digests(tree)
+                del tree
+                times[i] = (t0, t1, t1 - t0, None)
+                lb = h.reader.last_batch
+            splits[i] = [lb[k] for k in ("fetch_wall_s", "decode_wall_s",
+                                         "overlap_fraction")]
+        except Exception as e:          # reported by the check below
+            errors.append(f"worker {i}: {e!r}")
+
+    c0 = COUNTERS.snapshot()
+    kernels.reset_launches()
+    threads = [threading.Thread(target=work, args=(i,), name=f"worker-{i}",
+                                daemon=True) for i in range(STORM_WORKERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=STORM_TIMEOUT_S)
+    hung = [t.name for t in threads if t.is_alive()]
+    names = PEER_COUNTERS + RESILIENCE_COUNTERS + ("read.origin_fetches",)
+    d = _deltas(c0, names)
+    fused = kernels.LAUNCHES["fused_verify_decrypt"]
+    restores = [times[i][2] for i in sorted(times)]
+    out = {
+        "workers": STORM_WORKERS,
+        "fleet_wall_s": max((t[1] for t in times.values()), default=0.0)
+        - min((t[0] for t in times.values()), default=0.0),
+        "restore_s": restores,
+        "restore_p50_s": _pct(restores, 50),
+        "restore_max_s": max(restores, default=0.0),
+        "w0_load_seconds": times[0][3] if 0 in times else None,
+        "fetch_decode_overlap": [splits.get(i) for i in range(STORM_WORKERS)],
+        "origin_gets": d["read.origin_fetches"], "unique_chunks": unique,
+        "peer": {k: d[k] for k in PEER_COUNTERS},
+        "resilience": {k: d[k] for k in RESILIENCE_COUNTERS},
+        "crash": crash,
+        "served": [w.served for w in mesh.workers],
+        "led": list(led),
+        "join_waits": len(waits),
+        "join_wait_p50_s": _pct(waits, 50),
+        "join_wait_p99_s": _pct(waits, 99),
+        "join_wait_max_s": max(waits, default=0.0),
+        "join_waits_at_deadline": sum(w >= mesh.deadline_s for w in waits),
+        "fused_launches": fused,
+    }
+    log("peer storm:", json.dumps(out))
+    check(not hung, f"storm workers {hung} did not finish in "
+          f"{STORM_TIMEOUT_S} s")
+    torch.cuda.synchronize()
+    check(not errors, f"storm workers failed: {errors}")
+    for i in range(STORM_WORKERS):
+        check(digests.get(i) == ctx["want"],
+              f"storm worker {i}'s tree differs from phase 3's")
+    check(unique <= d["read.origin_fetches"] <= 2 * unique,
+          f"the storm made {d['read.origin_fetches']:.0f} origin GETs for "
+          f"{unique} distinct chunks (allowed {unique}..{2 * unique})")
+    check(d["peer.transfers"] > 0, "no peer transfer in the storm")
+    check(bool(crash), f"no worker leading at most "
+          f"{CRASH_MAX_LED_SHARE:.0%} of the flights served "
+          f"{CRASH_AFTER_TRANSFERS} transfers, so the crash did not fire")
+    check(d["retry.retries"] >= 1, "no origin GET was retried")
+    check(d["retry.giveups"] == 0,
+          f"{d['retry.giveups']:.0f} origin GETs gave up")
+    check(d["breaker.opened"] == 0, "the origin breaker opened")
+    check(fused >= STORM_WORKERS * fused_per_restore,
+          f"{fused} fused launches for {STORM_WORKERS} restores of "
+          f"{fused_per_restore} each")
+    reqs = [Request(i, prompt=p, max_new=16)
+            for i, p in enumerate(ctx["prompts"])]
+    for r in reqs:
+        engine[0].submit(r)
+    engine[0].run_until_drained()
+    check([r.out for r in reqs] == ctx["tokens"],
+          "storm worker 0's tokens differ from phase 3's")
+    log("peer storm: 4 trees byte-identical, worker 0's 4 requests give "
+        "phase 3's greedy tokens")
+    del engine, model
+    for svc in svcs:
+        svc.close()
+
+    # a poisoned peer copy, advertised by a worker that did not crash
+    name = sorted({c.name for c in open_manifest(blob, key).chunks}
+                  - {ZERO_CHUNK})[unique // 2]
+    clients[0].invalidate(name)
+    good = store.get_chunk("r0", name)
+    bad = bytearray(good)
+    bad[len(bad) // 2] ^= 0x01
+    poisoner = next(i for i in range(STORM_WORKERS) if i != crash["worker"])
+    clients[poisoner].put_chunk(name, bytes(bad), source="origin")
+    check(mesh.holders(name) == [poisoner],
+          "the poisoned copy is not advertised")
+    w4 = ImageService(origin, cfg, peer=clients[STORM_WORKERS])
+    h4 = w4.open(blob, key)
+    flagged = []
+    invalidate_bad = h4.reader._invalidate_bad
+
+    def record(err):
+        flagged.append(list(err.bad_positions))
+        invalidate_bad(err)
+    h4.reader._invalidate_bad = record
+    c1 = COUNTERS.snapshot()
+    f1 = kernels.LAUNCHES["fused_verify_decrypt"]
+    t0 = time.perf_counter()
+    got = tree_digests(h4.restore_tree())
+    out["poison_restore_s"] = time.perf_counter() - t0
+    d4 = _deltas(c1, names)
+    out["poison_origin_gets"] = d4["read.origin_fetches"]
+    out["poison_integrity_refetches"] = d4["retry.integrity_refetches"]
+    out["poison_fused_launches"] = kernels.LAUNCHES["fused_verify_decrypt"] \
+        - f1
+    out["poison_holders_after"] = mesh.holders(name)
+    w4.close()
+    log("poisoned peer copy:", json.dumps(
+        {k: v for k, v in out.items() if k.startswith("poison")}),
+        f"flagged {flagged}")
+    check(flagged == [[name]],
+          f"the fused decode flagged {flagged}, not [[{name[:12]}...]]")
+    check(got == ctx["want"], "worker 4's tree differs from phase 3's")
+    check(d4["retry.integrity_refetches"] == 1,
+          f"{d4['retry.integrity_refetches']:.0f} integrity refetch rounds")
+    check(d4["read.origin_fetches"] == 1,
+          f"worker 4 made {d4['read.origin_fetches']:.0f} origin GETs")
+    check(poisoner not in mesh.holders(name),
+          f"worker {poisoner} still holds the poisoned chunk")
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"peer storm phase: {out['phase_s']:.2f} s")
+    return out
+
+
 def rng_prompt(seed: int, vocab: int) -> list:
     import numpy as np
     return [int(t) for t in
@@ -985,7 +1271,12 @@ def main() -> int:
         l2_path, largest = phase_l2_path(kernels, ctx)
         rows["gf256"] = time_gf256(rng, *largest,
                                    erasure_rows["gf256_check_err"])
-        launches = {3: main_path["launches"], 4: l2_path["launches"]}
+        # phase 3's launches are those of two restores
+        storm = phase_peer_storm(
+            args.seed, kernels, ctx,
+            main_path["launches"]["fused_verify_decrypt"] // 2)
+        launches = {3: main_path["launches"], 4: l2_path["launches"],
+                    5: storm["launches"]}
         for phase, names in PATH_KERNELS.items():
             for name in names:
                 check(launches[phase][name] > 0, f"kernel {name} was not "
@@ -1013,10 +1304,12 @@ def main() -> int:
     summary["parity_launch_floor_ms"] = rows["parity"]["launch_floor_ms"]
     summary["l2_path"] = {k: v for k, v in l2_path.items()
                           if k != "launches"}
+    summary["peer_storm"] = {k: v for k, v in storm.items()
+                             if k != "launches"}
     summary["smoke_seconds"] = time.perf_counter() - t_all
     log("main path:", json.dumps(summary))
-    log(json.dumps({"launches": {"phase3": launches[3],
-                                 "phase4": launches[4]}}))
+    log(json.dumps({"launches": {f"phase{p}": n
+                                 for p, n in launches.items()}}))
     log(json.dumps({"kernels": table}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
-"""Demand-paged reads of an image through L1 -> L2 -> origin, split into
-a fetch stage and a decode stage (the port of ``repro.core.blockdev``'s
-``TieredReader``; the peer tier, retries, the breaker, GC pins and
-``CowBlockDevice`` are later slices).
+"""Demand-paged reads of an image through L1 -> peer -> L2 -> origin,
+split into a fetch stage and a decode stage (the port of
+``repro.core.blockdev``'s ``TieredReader``, with its peer tier, origin
+retries and circuit breaker; GC pins and ``CowBlockDevice`` are later
+slices).
 
   stage F — fetch only (``fetch_ciphertexts``): L1 probe ->
-    single-flight claim -> one batched L2 stripe fetch -> parallel,
-    limiter-bounded origin fetch, which fills the L2 with every chunk
-    it reads.
+    single-flight claim -> peer probe (direct holder hits inline,
+    names another worker provisions joined) -> one batched L2 stripe
+    fetch -> parallel, limiter-bounded origin fetch, which fills the L2
+    with every chunk it reads. Every chunk acquired from the L2 or the
+    origin is published to the peer mesh.
   stage D — decode (``core.decode.BatchDecoder``): verify + decrypt
     whole tiles of ciphertexts.
 
@@ -25,9 +28,14 @@ Read APIs:
 
 Concurrent fetches of one chunk name are single-flighted through a
 ``FlightTable`` that an ``ImageService`` shares across all its readers.
-On an ``IntegrityError`` the offending names are evicted from L1 and L2
-so a retry refetches them from origin instead of replaying the bad
-bytes.
+On an ``IntegrityError`` the offending names are evicted from L1, the
+L2 and the peer mesh; with a ``RetryPolicy`` the read then restarts
+(``integrity_refetches`` rounds), so the bad names come fresh from the
+origin instead of replaying the bad bytes.
+
+Origin GETs go through the resilience ladder (``core.retry``): a
+``CircuitBreaker`` gate, the fetch limiter, a per-attempt deadline for
+stores that take one, and ``RetryPolicy.call`` around the attempt.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from repro_torch.core.crypto import convergent
 from repro_torch.core.decode import BatchDecoder
 from repro_torch.core.layout import ranges_to_chunks
 from repro_torch.core.manifest import ZERO_CHUNK, Manifest
+from repro_torch.core.retry import BreakerOpenError, is_retryable
 from repro_torch.core.telemetry import COUNTERS
 
 DEFAULT_PARALLELISM = 8
@@ -93,12 +102,15 @@ class TieredReader:
     def __init__(self, manifest: Manifest, store, root: str | None = None,
                  l1=None, l2=None, concurrency=None,
                  decoder: BatchDecoder | None = None, counters=None,
-                 flights: FlightTable | None = None):
+                 flights: FlightTable | None = None, peer=None,
+                 retry=None, breaker=None):
         self.m = manifest
         self.store = store
         self.root = root or manifest.root_id
         self.l1 = l1
         self.l2 = l2
+        # this worker's ``PeerClient`` into a shared ``PeerMesh``
+        self.peer = peer
         self.concurrency = concurrency
         self.decoder = decoder if decoder is not None else BatchDecoder()
         self.counters = counters if counters is not None else COUNTERS
@@ -114,17 +126,65 @@ class TieredReader:
         l2_params = inspect.signature(l2_get).parameters if l2_get else {}
         self._l2_streams = "on_ready" in l2_params
         self._l2_hedges = "hedge" in l2_params
+        # origin resilience: a ``RetryPolicy`` around every origin GET
+        # and integrity round, a service-wide ``CircuitBreaker`` gating
+        # origin GETs; both None by default
+        self.retry = retry
+        self.breaker = breaker
+        store_get = getattr(store, "get_chunk", None)
+        self._store_deadlines = store_get is not None and \
+            "deadline_s" in inspect.signature(store_get).parameters
 
     # ------------------------------------------------------------- chunks
     def _origin_get(self, name: str) -> bytes:
-        limiter = self.concurrency if self.concurrency is not None \
-            else contextlib.nullcontext()
-        with limiter:
-            return self.store.get_chunk(self.root, name)
+        """One origin GET through the resilience ladder: breaker gate,
+        limiter, per-attempt deadline (for stores that take one), and
+        retries of transient failures. The breaker records retryable
+        outcomes only: a missing chunk is a bug, not origin weather."""
+        def attempt() -> bytes:
+            br = self.breaker
+            if br is not None and not br.allow():
+                raise BreakerOpenError(br.retry_after_s())
+            limiter = self.concurrency if self.concurrency is not None \
+                else contextlib.nullcontext()
+            kw = {}
+            if self._store_deadlines and self.retry is not None and \
+                    self.retry.attempt_timeout_s is not None:
+                kw["deadline_s"] = self.retry.attempt_timeout_s
+            try:
+                with limiter:
+                    ct = self.store.get_chunk(self.root, name, **kw)
+            except Exception as e:
+                if br is not None and is_retryable(e):
+                    br.record_failure()
+                raise
+            if br is not None:
+                br.record_success()
+            return ct
+
+        if self.retry is None:
+            return attempt()
+        return self.retry.call(attempt, counters=self.counters)
+
+    def _integrity_rounds(self, read):
+        """`read()`, restarted after an ``IntegrityError`` (whose bad
+        names `read` has evicted from every tier) up to the retry
+        policy's ``integrity_refetches`` times; once without a policy."""
+        rounds = 1 if self.retry is None \
+            else 1 + max(0, int(self.retry.integrity_refetches))
+        for round_ in range(rounds):
+            try:
+                return read()
+            except convergent.IntegrityError:
+                if round_ == rounds - 1:
+                    raise
+                self.counters.inc("retry.integrity_refetches")
 
     def _fetch_cipher(self, ref) -> bytes:
-        """Ciphertext of `ref` from L2, else origin (which fills the L2),
-        single-flighted by chunk name. L1 is probed by callers."""
+        """Ciphertext of `ref` from the peer mesh, else L2, else origin
+        (which fills the L2), single-flighted by chunk name; what came
+        from the L2 or the origin is published to the mesh. L1 is probed
+        by callers."""
         with self._flight_lock:
             flight = self._flights.get((self.root, ref.name))
             leader = flight is None
@@ -139,21 +199,39 @@ class TieredReader:
         try:
             # (a flight may have backfilled L1)
             ct = self.l1.peek(ref.name) if self.l1 is not None else None
+            src = None
+            if ct is None and self.peer is not None:
+                # a miss leaves this worker leading the mesh flight: the
+                # put_chunk or abandon below settles the lease
+                _, ct = self.peer.get_chunk(ref.name, self.m.chunk_size)
+                if ct is not None:
+                    self.counters.inc("read.peer_hits")
+                    if self.l1 is not None:
+                        self.l1.put(ref.name, ct)
             if ct is None and self.l2 is not None:
                 _, ct = self.l2.get_chunk(ref.name, self.m.chunk_size)
-                if ct is not None and self.l1 is not None:
-                    self.l1.put(ref.name, ct)
+                if ct is not None:
+                    src = "l2"
+                    if self.l1 is not None:
+                        self.l1.put(ref.name, ct)
             if ct is None:
                 ct = self._origin_get(ref.name)
+                src = "origin"
                 self.counters.inc("read.origin_fetches")
                 if self.l2 is not None:
                     self.l2.put_chunk(ref.name, ct)
                 if self.l1 is not None:
                     self.l1.put(ref.name, ct)
+            if src is not None and self.peer is not None:
+                self.peer.put_chunk(ref.name, ct, source=src)
             flight.ciphertext = ct
             return ct
         except Exception as e:
             flight.error = e
+            if self.peer is not None:
+                # promote a joiner instead of stranding the tree (no-op
+                # when another worker leads)
+                self.peer.abandon(ref.name)
             raise
         finally:
             with self._flight_lock:
@@ -162,22 +240,25 @@ class TieredReader:
 
     def fetch_chunk(self, index: int) -> bytes:
         """Plaintext of chunk `index` (serial, per-chunk oracle). A
-        tampered ciphertext is evicted from L1 before the error
-        propagates."""
+        tampered ciphertext is evicted from every tier before the error
+        propagates or, with a retry policy, the chunk is refetched."""
         ref = self._refs[index]
         if ref.name == ZERO_CHUNK:
             self.counters.inc("read.zero_chunks")
             return b"\x00" * self.m.chunk_size
-        ct = self.l1.get(ref.name) if self.l1 is not None else None
-        if ct is not None:
-            self.counters.inc("read.l1_hits")
-        else:
-            ct = self._fetch_cipher(ref)
-        try:
-            return convergent.decrypt_chunk(ct, ref.key, ref.sha256)
-        except convergent.IntegrityError:
-            self._invalidate_name(ref.name)
-            raise
+
+        def once() -> bytes:
+            ct = self.l1.get(ref.name) if self.l1 is not None else None
+            if ct is not None:
+                self.counters.inc("read.l1_hits")
+            else:
+                ct = self._fetch_cipher(ref)
+            try:
+                return convergent.decrypt_chunk(ct, ref.key, ref.sha256)
+            except convergent.IntegrityError:
+                self._invalidate_name(ref.name)
+                raise
+        return self._integrity_rounds(once)
 
     # ------------------------------------------------- stage F: fetch I/O
     def fetch_ciphertexts(self, indices,
@@ -252,13 +333,26 @@ class TieredReader:
         with self._flight_lock:
             self._flights.pop((self.root, name), None)
         flight.event.set()
+        if self.peer is not None:
+            # release a mesh lease we hold for this name (no-op when
+            # another worker leads)
+            self.peer.abandon(name)
 
     def _fetch_leaders(self, lead: dict, parallelism: int,
                        fb: FetchedBatch, l2_hedge: bool | None = None):
         """The names this call leads: L1 double-check (a previous flight
-        may have backfilled it), then one batched L2 fetch, then the
-        parallel origin stage. Every claimed flight is resolved or
-        poisoned, even on an interrupt."""
+        may have backfilled it), the peer probe, then one batched L2
+        fetch and the parallel origin stage. Every claimed flight is
+        resolved or poisoned, even on an interrupt.
+
+        The peer probe does not block on names another worker is
+        provisioning: holder hits resolve inline, such names are joined
+        on peer pool threads (futures), and only the names this worker
+        now leads in the mesh fall through at once. The joined futures
+        are drained after that fall-through (two workers each leading a
+        name the other joined must both make progress), and joins that
+        come back empty (promotion, a dead peer, the deadline) take a
+        second fall-through (``read.peer_fallthroughs``)."""
         unresolved = dict(lead)
         try:
             pending = []
@@ -268,14 +362,47 @@ class TieredReader:
                     self._resolve_flight(name, unresolved.pop(name), ct, fb)
                 else:
                     pending.append(name)
-            if pending and self.l2 is not None:
-                pending = self._l2_stage(pending, unresolved, fb, l2_hedge)
+            peer_futs: dict = {}
+            if pending and self.peer is not None:
+                def peer_ready(name, _lat, ct):
+                    # inline for holder hits, on a peer pool thread for
+                    # joined flights; the error path may have poisoned
+                    # this name already
+                    flight = unresolved.pop(name, None)
+                    if flight is None:
+                        return
+                    self.counters.inc("read.peer_hits")
+                    if self.l1 is not None:
+                        self.l1.put(name, ct)
+                    self._resolve_flight(name, flight, ct, fb)
+                pending, peer_futs = self.peer.probe_chunks(
+                    pending, self.m.chunk_size, peer_ready)
             if pending:
-                self._origin_stage(pending, parallelism, unresolved, fb)
+                self._fall_through(pending, parallelism, fb, unresolved,
+                                   l2_hedge)
+            if peer_futs:
+                again = [name for name, fut in peer_futs.items()
+                         if fut.result()[1] is None and name in unresolved]
+                if again:
+                    self.counters.add("read.peer_fallthroughs", len(again))
+                    self._fall_through(again, parallelism, fb, unresolved,
+                                       l2_hedge)
         except BaseException as e:
             for name in list(unresolved):
-                self._poison_flight(name, unresolved.pop(name), e)
+                flight = unresolved.pop(name, None)
+                if flight is not None:      # else a peer thread resolved it
+                    self._poison_flight(name, flight, e)
             raise
+
+    def _fall_through(self, pending: list, parallelism: int,
+                      fb: FetchedBatch, unresolved: dict,
+                      l2_hedge: bool | None = None):
+        """The lower tiers for `pending` led names: one batched L2
+        fetch, then the parallel origin stage."""
+        if self.l2 is not None:
+            pending = self._l2_stage(pending, unresolved, fb, l2_hedge)
+        if pending:
+            self._origin_stage(pending, parallelism, unresolved, fb)
 
     def _l2_stage(self, pending: list, unresolved: dict, fb: FetchedBatch,
                   l2_hedge: bool | None) -> list:
@@ -291,6 +418,8 @@ class TieredReader:
             fb.l2_hits += 1
             if self.l1 is not None:
                 self.l1.put(name, ct)
+            if self.peer is not None:
+                self.peer.put_chunk(name, ct, source="l2")
             self._resolve_flight(name, unresolved.pop(name), ct, fb)
 
         if self._l2_streams and fb.sink is not None:
@@ -319,6 +448,8 @@ class TieredReader:
                 self.l2.put_chunk(name, ct)
             if self.l1 is not None:
                 self.l1.put(name, ct)
+            if self.peer is not None:
+                self.peer.put_chunk(name, ct, source="origin")
             return ct
 
         first_err = None
@@ -358,11 +489,12 @@ class TieredReader:
 
     # ------------------------------------------------- stage F + stage D
     def _invalidate_name(self, name: str):
-        """Evict one tamper-flagged chunk name from L1 and the L2."""
-        if self.l1 is not None:
-            self.l1.invalidate(name)
-        if self.l2 is not None:
-            self.l2.invalidate(name)
+        """Evict one tamper-flagged chunk name from L1, the L2 and the
+        peer mesh (directory entry and every holder's copy, so no later
+        reader is served the bad copy peer-to-peer)."""
+        for tier in (self.l1, self.l2, self.peer):
+            if tier is not None:
+                tier.invalidate(name)
 
     def _invalidate_bad(self, err: convergent.IntegrityError):
         for name in err.bad_positions:
@@ -376,10 +508,19 @@ class TieredReader:
                      l2_hedge: bool | None = None) -> dict:
         """{index: plaintext} for a deduplicated chunk set: stage F then
         one batched stage D (staged), or both at once (``streamed``,
-        ``fetch_chunks_streamed``). Byte-identical either way."""
+        ``fetch_chunks_streamed``). Byte-identical either way. After an
+        ``IntegrityError`` the bad names are evicted from every tier and,
+        with a retry policy, the read restarts: the good names are warm
+        L1 hits, the bad ones come from the origin again."""
         if streamed:
             return self.fetch_chunks_streamed(indices, parallelism,
                                               queue_depth, decoder, l2_hedge)
+        return self._integrity_rounds(lambda: self._fetch_chunks_staged(
+            indices, parallelism, decoder, l2_hedge))
+
+    def _fetch_chunks_staged(self, indices, parallelism: int,
+                             decoder: BatchDecoder | None,
+                             l2_hedge: bool | None) -> dict:
         dec = decoder if decoder is not None else self.decoder
         t0 = time.perf_counter()
         fb = self.fetch_ciphertexts(indices, parallelism, l2_hedge=l2_hedge)
@@ -414,7 +555,15 @@ class TieredReader:
         ciphertexts into a ``queue_depth``-bounded queue; stage D
         (``decoder.decrypt_stream``) on this thread. ``last_batch``
         adds ``overlap_s`` (decode work hidden under the fetch wall),
-        ``overlap_fraction`` and the queue's high-water mark."""
+        ``overlap_fraction`` and the queue's high-water mark. Integrity
+        failures restart the read as in ``fetch_chunks``."""
+        return self._integrity_rounds(lambda: self._fetch_streamed_once(
+            indices, parallelism, queue_depth, decoder, l2_hedge))
+
+    def _fetch_streamed_once(self, indices, parallelism: int,
+                             queue_depth: int,
+                             decoder: BatchDecoder | None,
+                             l2_hedge: bool | None) -> dict:
         dec = decoder if decoder is not None else self.decoder
         t0 = time.perf_counter()
         refs_by_name: dict[str, object] = {}

@@ -149,6 +149,14 @@ class RejectingLimiter:
             self.admitted += 1
             return True
 
+    def shed(self):
+        """Count a rejection decided above the limiter (the service's
+        breaker-open brownout sheds before trying for a slot), so
+        ``rejected`` stays the one count of arrivals turned away."""
+        with self._lock:
+            self.rejected += 1
+            COUNTERS.inc("limiter.rejected")
+
     def release(self):
         # clamp at zero: a double-release (finally-block running after a
         # failed try_acquire path, say) must not drive inflight negative

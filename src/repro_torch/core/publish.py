@@ -1,6 +1,6 @@
 """Batched publish pipeline — the write path (the port of
-``repro.core.publish``; the ``NameIndex`` dedup sidecar, refcounts and
-retries are later slices).
+``repro.core.publish``; the ``NameIndex`` dedup sidecar and refcounts
+are later slices).
 
 The stages, byte-identical to the serial ``create_image`` oracle of the
 JAX package (``repro.core.loader``) for the same tree, root and salt
@@ -13,8 +13,9 @@ epoch:
   (``BatchDecoder.derive_keys_batch``, the backend's ``sha_many``);
 * encrypt — ``BatchDecoder.encrypt_batch_timed``: the AES-CTR
   keystreams and the naming SHA pass through the backend's hooks;
-* upload — bounded-parallel ``put_if_absent``; encryption of stage
-  batch N+1 overlaps the uploads of batch N;
+* upload — bounded-parallel ``put_if_absent`` (under the optional
+  ``RetryPolicy``); encryption of stage batch N+1 overlaps the uploads
+  of batch N; each new chunk warms the optional L1 and peer tier;
 * seal — the manifest, authenticated, key table encrypted.
 """
 from __future__ import annotations
@@ -70,13 +71,15 @@ class PublishPipeline:
     ``ImageService`` owns one; all methods are thread-safe."""
 
     def __init__(self, store, *, backend: str = "torch-fused",
-                 tile_bytes: int | str | None = None, l1=None,
-                 counters=None, device="cuda"):
+                 tile_bytes: int | str | None = None, l1=None, peer=None,
+                 retry=None, counters=None, device="cuda"):
         self.store = store
         self.decoder = BatchDecoder(backend, max_batch_bytes=tile_bytes,
                                     device=device)
         self.upload_parallelism = DEFAULT_UPLOAD_PARALLELISM
         self.l1 = l1
+        self.peer = peer
+        self.retry = retry
         self.counters = counters if counters is not None else COUNTERS
         self._pool = LazyPool()
         self._limiter = BlockingLimiter(self.upload_parallelism)
@@ -169,17 +172,27 @@ class PublishPipeline:
         new = dup = nbytes = 0
         try:
             for name, ct in items:
-                if self.store.put_if_absent(root, name, ct):
+                if self._put(root, name, ct):
                     new += 1
                     nbytes += len(ct)
                     self.counters.inc("publish.chunks_uploaded")
                     if self.l1 is not None:
                         self.l1.put(name, ct)        # warm the local tier
+                    if self.peer is not None:
+                        self.peer.put_chunk(name, ct, source="publish")
                 else:
                     dup += 1
             return new, dup, nbytes
         finally:
             self._limiter.release()
+
+    def _put(self, root: str, name: str, ct: bytes) -> bool:
+        """One PUT-if-absent, retried under the policy when one is set."""
+        if self.retry is None:
+            return self.store.put_if_absent(root, name, ct)
+        return self.retry.call(
+            lambda: self.store.put_if_absent(root, name, ct),
+            counters=self.counters)
 
     def close(self):
         """Drain the upload pool (idempotent)."""

@@ -1,17 +1,20 @@
 """ImageService: the process-wide read-path agent (the port of
-``repro.core.service``; the peer tier, retry and breaker knobs and
-session TTLs are later slices).
+``repro.core.service``; session TTLs are a later slice).
 
-* ``ServiceConfig`` — the knobs this slice uses, with the JAX package's
+* ``ServiceConfig`` — the knobs the port uses, with the JAX package's
   names and defaults, except that ``decode_backend`` defaults to
   ``"torch-fused"`` and there is a ``device`` (default ``"cuda"``;
-  constructing a config for CUDA on a machine without it raises).
+  constructing a config for CUDA on a machine without it raises). The
+  peer, retry and breaker knobs are all off by default.
 * ``ImageService`` — shared store, L1, L2, admission and fetch limiters,
-  decoder pools and single-flight table; ``open`` hands out
-  ``ImageHandle`` sessions, ``publish`` runs the write path. The L2 is
-  either passed in (``ImageService(store, cfg, l2=...)``, one L2 shared
-  by several workers) or built from ``l2_nodes`` > 0, with the erasure
-  kernels of the service's device as its hooks.
+  decoder pools, single-flight table, and one ``RetryPolicy`` and one
+  ``CircuitBreaker`` shared by its readers and its publisher; ``open``
+  hands out ``ImageHandle`` sessions, ``publish`` runs the write path.
+  The L2 is either passed in (``ImageService(store, cfg, l2=...)``, one
+  L2 shared by several workers) or built from ``l2_nodes`` > 0, with the
+  erasure kernels of the service's device as its hooks. The peer tier
+  is passed in as this worker's client of a mesh that spans many
+  services (``build_peer_mesh``, ``ImageService(..., peer=...)``).
 * ``ImageHandle`` — reads of one opened image under a ``ReadPolicy``.
 """
 from __future__ import annotations
@@ -34,6 +37,7 @@ from repro_torch.core.blockdev import (
 )
 from repro_torch.core.cache.distributed import DistributedCache
 from repro_torch.core.cache.local import LocalCache
+from repro_torch.core.cache.peer import PeerMesh
 from repro_torch.core.concurrency import BlockingLimiter, RejectingLimiter
 from repro_torch.core.decode import (
     BatchDecoder,
@@ -48,6 +52,7 @@ from repro_torch.core.layout import (
 )
 from repro_torch.core.manifest import open_manifest
 from repro_torch.core.publish import PublishPipeline
+from repro_torch.core.retry import CircuitBreaker, RetryPolicy
 from repro_torch.core.telemetry import COUNTERS, ScopedCounters
 from repro_torch.kernels.gf256.ops import rs_matmul_fn
 from repro_torch.kernels.parity.ops import parity_fn_for_erasure
@@ -57,7 +62,13 @@ _MODES = ("streamed", "staged", "serial")
 
 class ColdStartRejected(RuntimeError):
     """Admission control turned the cold start away (paper §4.2:
-    excess starts are rejected, not queued)."""
+    excess starts are rejected, not queued). ``retry_after_s`` > 0
+    means the brownout shed it (the origin breaker is open) and says
+    when the breaker next accepts probes."""
+
+    def __init__(self, msg: str, retry_after_s: float = 0.0):
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
 
 
 @dataclass(frozen=True)
@@ -121,6 +132,27 @@ class ServiceConfig:
     l2_hedge_quantile: float | None = None      # None = hedging off
     l2_infection_threshold: int = 0             # 0 = hot-key salting off
     l2_salt_count: int = 3                      # placement keys when salted
+    # peer-tier knobs (used by build_peer_mesh: the mesh spans many
+    # services, so a service receives its PeerClient via peer=)
+    peer_fanout: int = 4                # provisioning-tree arity
+    peer_deadline_s: float = 2.0        # bounded wait on a joined flight
+    peer_registration: str = "all"      # "all" | "origin" (see peer.py)
+    publish_warm_l1: bool = True        # push fresh ciphertexts into L1/peer
+    # origin-tier resilience (core.retry / core.faults), all off by
+    # default
+    retry_attempts: int = 0             # total origin attempts; 0/1 = off
+    retry_base_s: float = 0.01          # backoff floor (decorrelated jitter)
+    retry_cap_s: float = 0.5            # backoff ceiling
+    retry_total_budget_s: float | None = None   # wall budget across attempts
+    retry_attempt_timeout_s: float | None = None  # per-attempt deadline
+    retry_integrity_refetches: int = 2  # evict+refetch rounds on bad bytes
+    retry_seed: int | None = None       # pin the jitter stream
+    breaker_threshold: float | None = None  # error rate to open; None = off
+    breaker_window: int = 64            # sliding error-rate window size
+    breaker_min_samples: int = 10       # samples before the rate can trip
+    breaker_cooldown_s: float = 1.0     # open -> half-open delay
+    breaker_half_open_probes: int = 1   # concurrent probes while half-open
+    breaker_shed_coldstarts: bool = True  # brownout: shed admissions too
 
     def __post_init__(self):
         resolve_device(self.device)
@@ -134,7 +166,7 @@ class ImageService:
     """Process-wide agent: construct once, ``open()`` per image."""
 
     def __init__(self, store, config: ServiceConfig | None = None, *,
-                 l2=None):
+                 l2=None, peer=None):
         cfg = config if config is not None else ServiceConfig()
         self.config = cfg
         self.device = resolve_device(cfg.device)
@@ -144,11 +176,28 @@ class ImageService:
         self.l1 = LocalCache(cfg.l1_bytes, name=f"svc{next(_SVC_SEQ)}.l1") \
             if cfg.l1_bytes > 0 else None
         self.l2 = l2 if l2 is not None else self._build_l2(cfg)
+        self.peer = peer
         self.fetch_limiter = BlockingLimiter(cfg.fetch_concurrency) \
             if cfg.fetch_concurrency > 0 else None
         self.admission = RejectingLimiter(cfg.max_coldstarts) \
             if cfg.max_coldstarts > 0 else None
         self.counters = COUNTERS
+        # one retry policy and one breaker per service, shared by every
+        # reader and the publisher: the breaker's error rate must span
+        # all of this process's origin traffic
+        self.retry = RetryPolicy(
+            attempts=cfg.retry_attempts, base_s=cfg.retry_base_s,
+            cap_s=cfg.retry_cap_s, total_budget_s=cfg.retry_total_budget_s,
+            attempt_timeout_s=cfg.retry_attempt_timeout_s,
+            integrity_refetches=cfg.retry_integrity_refetches,
+            seed=cfg.retry_seed) if cfg.retry_attempts > 1 else None
+        self.breaker = CircuitBreaker(
+            cfg.breaker_threshold, window=cfg.breaker_window,
+            min_samples=cfg.breaker_min_samples,
+            cooldown_s=cfg.breaker_cooldown_s,
+            half_open_probes=cfg.breaker_half_open_probes,
+            counters=self.counters) \
+            if cfg.breaker_threshold is not None else None
         self.flights = FlightTable()
         self._publisher: PublishPipeline | None = None
         self._decoders: dict[tuple, BatchDecoder] = {}
@@ -240,8 +289,21 @@ class ImageService:
     @contextlib.contextmanager
     def admission_slot(self):
         """Hold one admission slot; raises ``ColdStartRejected`` when
-        ``max_coldstarts`` starts are in flight (reject, don't queue)."""
+        ``max_coldstarts`` starts are in flight (reject, don't queue) or,
+        the brownout's first rung, when the origin breaker is open (with
+        a ``retry_after_s`` hint). Half-open probing is left to reads in
+        flight, so recovery does not wait for new arrivals."""
+        br = self.breaker
         lim = self.admission
+        if br is not None and self.config.breaker_shed_coldstarts \
+                and br.state == CircuitBreaker.OPEN:
+            ra = br.retry_after_s()
+            self.counters.inc("serve.brownout_shed")
+            if lim is not None:
+                lim.shed()
+            raise ColdStartRejected(
+                f"cold-start shed: origin breaker open (retry after "
+                f"{ra:.2f}s)", retry_after_s=ra)
         if lim is None:
             yield
             return
@@ -280,7 +342,8 @@ class ImageService:
                 manifest, self.store, root=root, l1=self.l1, l2=self.l2,
                 concurrency=self.fetch_limiter,
                 decoder=self.decoder_for(self.config.default_policy),
-                counters=scope, flights=self.flights)
+                counters=scope, flights=self.flights, peer=self.peer,
+                retry=self.retry, breaker=self.breaker)
             return reader, scope
 
         reader, scope = self._cached(
@@ -291,13 +354,17 @@ class ImageService:
     # ------------------------------------------------------------- publish
     def publisher(self) -> PublishPipeline:
         """The service's shared write path (lazily built): the decode
-        backend's hooks on the service's device, warming this service's
-        L1 with the fresh ciphertexts."""
+        backend's hooks on the service's device, the service's retry
+        policy around uploads, and (``publish_warm_l1``) the fresh
+        ciphertexts pushed into this service's L1 and peer tier."""
         with self._lock:
             if self._publisher is None:
+                warm = self.config.publish_warm_l1
                 self._publisher = PublishPipeline(
                     self.store, backend=self.config.decode_backend,
-                    tile_bytes=self.config.max_batch_bytes, l1=self.l1,
+                    tile_bytes=self.config.max_batch_bytes,
+                    l1=self.l1 if warm else None,
+                    peer=self.peer if warm else None, retry=self.retry,
                     counters=self.counters, device=self.device)
             return self._publisher
 
@@ -379,3 +446,15 @@ class ImageHandle:
             raw = b"".join(next(bufs) for _ in ranges)
             out[name] = np.frombuffer(raw, dt).reshape(shape)
         return out
+
+
+def build_peer_mesh(config: ServiceConfig, num_workers: int, *,
+                    seed: int = 0, transfer_hook=None) -> PeerMesh:
+    """A ``PeerMesh`` sized from `config`'s peer knobs. Worker i's
+    service takes ``mesh.client(i)`` (``ImageService(peer=...)``);
+    faults go through ``mesh.set_fault(i, FaultPlan...)`` as for the
+    L2's nodes."""
+    return PeerMesh(num_workers, fanout=config.peer_fanout,
+                    deadline_s=config.peer_deadline_s,
+                    registration=config.peer_registration,
+                    seed=seed, transfer_hook=transfer_hook)

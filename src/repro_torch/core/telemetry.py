@@ -137,6 +137,35 @@ class LatencyRecorder:
                 "max": float(a.max())}
 
 
+
+class ErrorRateWindow:
+    """Sliding success/failure window: the circuit breaker's error-rate
+    input (``core.retry.CircuitBreaker``), so an old outage does not
+    keep the breaker twitchy after the origin healed. Thread-safe."""
+
+    def __init__(self, maxlen: int = 64):
+        self._dq: deque = deque(maxlen=max(1, int(maxlen)))
+        self._lock = threading.Lock()
+
+    def record(self, ok: bool):
+        with self._lock:
+            self._dq.append(0 if ok else 1)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._dq)
+
+    def error_rate(self) -> float:
+        with self._lock:
+            if not self._dq:
+                return 0.0
+            return sum(self._dq) / len(self._dq)
+
+    def reset(self):
+        """Drop history (a breaker transition starts a fresh regime)."""
+        with self._lock:
+            self._dq.clear()
+
 class QuantileWindow:
     """Sliding-window quantile over the most recent samples: the L2's
     hedged-GET deadline is "past the p-th quantile of *recent* stripe

@@ -38,7 +38,9 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.kernels.fused.ops", "repro_torch.models.lm",
               "repro_torch.core.cache.distributed",
               "repro_torch.kernels.gf256.ops",
-              "repro_torch.kernels.parity.ops"):
+              "repro_torch.kernels.parity.ops",
+              "repro_torch.core.cache.peer", "repro_torch.core.retry",
+              "repro_torch.core.faults"):
         assert m in res["modules"]
 
 
