@@ -70,10 +70,30 @@ Phases (any failure exits non-zero):
    restores: the fused kernel flags that chunk, the reader evicts it
    mesh-wide and restarts, the restart takes exactly one origin GET,
    and the restored tree is byte-identical.
+6. checkpoint roll under a live restore — on a fresh store, a
+   ``GenerationalGC`` and services sharing its pins and refcounts and
+   one name-index sidecar: a trainer publishes phase 3's tree A as
+   ``ckpt-0`` into R1 (SHA and AES kernels); a restarted trainer (a new
+   service) publishes B, A with the last two layers of every
+   ``g0/s0/*`` tensor redrawn, as ``ckpt-1``: it must skip encrypting
+   exactly the chunks of B that hashlib finds in A, and upload the
+   rest. ``retire_image(R1, "ckpt-0")`` must return A's chunks that B
+   lacks. A reader (empty L1, no L2) restores B streamed from R1 while
+   its origin GETs from the 1000th on are held: meanwhile a sweep of R1
+   is deferred and deletes nothing, ``new_root`` gives R2 and
+   ``migrate`` moves one manifest and copies B's chunks. Released, the
+   restore must equal B; then the sweep reclaims exactly the dead
+   chunks, R1 expires and is deleted with no alarm. B cold-starts from
+   R2 and serves phase 3's requests with the tokens of B loaded without
+   the image. A ``CowBlockDevice`` over B in R2: a 4 MiB read across
+   chunks equals B's image bytes, an unaligned 1 MiB write reads back,
+   a fresh reader still sees the base, and a prefetched ``embed`` shard
+   reads back equal with no further origin GET.
 
-The last lines are the launch counts of phases 3, 4 and 5, the kernel
+The last lines are the launch counts of phases 3 to 6, the kernel
 table (``{"kernels": [...]}``, each kernel's launches counted on the path
-that runs it), the ``nvidia-smi`` name/power-limit line and
+that runs it, and on every path in ``launches_by_phase``), the
+``nvidia-smi`` name/power-limit line and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -84,6 +104,7 @@ import json
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -182,7 +203,9 @@ TPU_KERNELS = {
 PATH_KERNELS = {3: ("fused_verify_decrypt", "sha256_many",
                     "aes_encrypt_many"),
                 4: ("parity", "gf256", "fused_verify_decrypt"),
-                5: ("fused_verify_decrypt",)}
+                5: ("fused_verify_decrypt",),
+                6: ("sha256_many", "aes_encrypt_many",
+                    "fused_verify_decrypt")}
 # phase 5: the storm's workers (worker STORM_WORKERS idles until the
 # poisoned-copy restore). Every worker asks for the image's chunks in
 # the same order, so the first to probe leads nearly every flight (on
@@ -206,6 +229,11 @@ PEER_COUNTERS = ("peer.transfers", "peer.direct_hits", "peer.tree_hits",
                  "peer.registered_chunks", "read.peer_hits",
                  "read.peer_fallthroughs", "peer.tree_repairs",
                  "peer.abandoned_leases")
+# phase 6: B is A with these rows (the last two of 32 layers) of every
+# g0/s0/* tensor redrawn; the reader's gate holds its GETs from this one on
+FINE_TUNED_ROWS = slice(30, 32)
+GATE_AT_GET = 1000
+GATE_TIMEOUT_S = 300
 RESILIENCE_COUNTERS = ("retry.attempts", "retry.retries", "retry.backoff_s",
                        "retry.giveups", "retry.budget_exhausted",
                        "retry.integrity_refetches", "breaker.opened",
@@ -860,7 +888,7 @@ def phase_main_path(seed: int, kernels, tmp: Path) -> tuple:
     svc.close()
     ctx = {"store": store, "blob": blob, "key": key, "want": want,
            "unique_chunks": st.unique_chunks, "prompts": prompts,
-           "tokens": [r.out for r in reqs]}
+           "tokens": [r.out for r in reqs], "flat": flat}
     return out, ctx
 
 
@@ -1228,6 +1256,320 @@ def phase_peer_storm(seed: int, kernels, ctx: dict,
     return out
 
 
+# ------------------------------------------------------------- phase 6
+
+class GatedStore:
+    """The reader's view of the store: forwards every call, and from
+    its `at`-th ``get_chunk`` on holds each GET until ``release`` is
+    set. The GC's own GETs (``copy_chunks``) go to the store itself, so
+    they are neither counted nor held."""
+
+    def __init__(self, inner, at: int):
+        self.inner = inner
+        self.at = at
+        self.calls = 0
+        self._lock = threading.Lock()
+        self.reached = threading.Event()
+        self.release = threading.Event()
+
+    def __getattr__(self, item):
+        return getattr(self.inner, item)
+
+    def get_chunk(self, root, name):
+        with self._lock:
+            self.calls += 1
+            held = self.calls >= self.at
+        if held:
+            self.reached.set()
+            if not self.release.wait(timeout=GATE_TIMEOUT_S):
+                raise SmokeFailure("the reader's gate was never released")
+        return self.inner.get_chunk(root, name)
+
+
+def fine_tune(flat: dict, seed: int) -> dict:
+    """B: `flat` with the last two layers (rows FINE_TUNED_ROWS) of every
+    ``g0/s0/*`` tensor redrawn from `seed` (weights at the init scale,
+    norm scales around 1); every other array is shared with `flat`."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = dict(flat)
+    for name in sorted(flat):
+        if not name.startswith("g0/s0/"):
+            continue
+        a = flat[name].copy()
+        rows = a[FINE_TUNED_ROWS]
+        new = rng.standard_normal(rows.shape, dtype=np.float32)
+        if name.endswith("/scale"):
+            new = np.float32(1) + np.float32(0.01) * new
+        else:
+            new *= np.float32(1.0 / np.sqrt(a.shape[-2]))
+        a[FINE_TUNED_ROWS] = new
+        out[name] = a
+    return out
+
+
+def chunk_digests(flat: dict) -> list:
+    """hashlib SHA-256 of each non-zero chunk of `flat`'s image, in
+    chunk order."""
+    from repro_torch.core.layout import StreamingImageWriter, build_layout, \
+        canonical_paths
+    lay = build_layout(flat)
+    return [hashlib.sha256(c).digest() for _, c in
+            StreamingImageWriter(lay).chunks(canonical_paths(flat))
+            if c.count(0) != len(c)]
+
+
+def image_bytes(layout, flat: dict, offset: int, length: int) -> bytes:
+    """Bytes [offset, offset + length) of `flat`'s image, assembled from
+    the tensors at the layout's offsets (zeros between them)."""
+    import numpy as np
+    out = np.zeros(length, np.uint8)
+    end = offset + length
+    for t in layout.tensors.values():
+        lo, hi = max(offset, t.offset), min(end, t.offset + t.nbytes)
+        if lo < hi:
+            raw = np.ascontiguousarray(flat[t.name]).view(np.uint8).reshape(-1)
+            out[lo - offset:hi - offset] = raw[lo - t.offset:hi - t.offset]
+    return out.tobytes()
+
+
+def disk_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def phase_gc_roll(seed: int, kernels, ctx: dict, work: Path) -> dict:
+    """A checkpoint roll of SmolLM-360M under a live restore (module
+    doc, phase 6)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.blockdev import CowBlockDevice
+    from repro_torch.core.gc import GenerationalGC
+    from repro_torch.core.layout import CHUNK_SIZE
+    from repro_torch.core.loader import sharding_slices
+    from repro_torch.core.manifest import ZERO_CHUNK, open_manifest
+    from repro_torch.core.service import ImageService, ServiceConfig
+    from repro_torch.core.store import ChunkStore
+    from repro_torch.core.telemetry import COUNTERS
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve.coldstart import cold_start
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config("smollm-360m")
+    key = ctx["key"]
+    flat_a = ctx["flat"]
+    flat_b = fine_tune(flat_a, seed + 1)
+    want_b = tree_digests(flat_b)
+    dig_a = set(chunk_digests(flat_a))
+    dig_b = chunk_digests(flat_b)
+    shared = sum(d in dig_a for d in dig_b)      # B's chunks A already has
+    store = ChunkStore(work / "store")
+    gc = GenerationalGC(store)
+    r1 = gc.active
+    disk = [0]
+    out = {"b_nonzero_chunks": len(dig_b), "b_chunks_in_a": shared}
+
+    def service(root, **kw):
+        return ImageService(store, ServiceConfig(
+            device="cuda", root=root,
+            publish_name_index_path=str(work / "names.idx"), **kw),
+            pins=gc.pins, refcounts=gc.refcounts)
+
+    def names_of(blob) -> set:
+        return {c.name for c in open_manifest(blob, key).chunks} - \
+            {ZERO_CHUNK}
+
+    kernels.reset_launches()
+    # 1. the trainer publishes A
+    p = service(r1)
+    gc.pipeline = p.publisher()
+    t0 = time.perf_counter()
+    blob_a, st_a = p.publish(flat_a, tenant="smoke", tenant_key=key,
+                             image_id="ckpt-0")
+    torch.cuda.synchronize()
+    out["publish_a_s"] = time.perf_counter() - t0
+    out["publish_a_crypto_s"] = p.publisher().last_timing["crypto_s"]
+    # 2. a restarted trainer publishes B through the saved name index
+    q = service(r1)
+    c0 = COUNTERS.snapshot()
+    t0 = time.perf_counter()
+    blob_b, st_b = q.publish(flat_b, tenant="smoke", tenant_key=key,
+                             image_id="ckpt-1")
+    torch.cuda.synchronize()
+    out["publish_b_s"] = time.perf_counter() - t0
+    tb = q.publisher().last_timing
+    out["publish_b_crypto_s"] = tb["crypto_s"]
+    out["publish_b_probe_s"] = tb["probe_s"]
+    d = _deltas(c0, ("publish.encrypt_skipped_chunks",
+                     "publish.encrypt_skipped_bytes", "store.presence_probes"))
+    out["skipped_chunks"] = d["publish.encrypt_skipped_chunks"]
+    out["skipped_bytes"] = d["publish.encrypt_skipped_bytes"]
+    out["b_presence_probes"] = d["store.presence_probes"]
+    out["b_unique_chunks"] = st_b.unique_chunks
+    q.close()
+    disk[0] = max(disk[0], disk_bytes(work))
+    log("gc roll: publish A", json.dumps({k: out[k] for k in (
+        "publish_a_s", "publish_a_crypto_s")}), "B", json.dumps({
+            k: out[k] for k in ("publish_b_s", "publish_b_crypto_s",
+                                "publish_b_probe_s", "skipped_chunks",
+                                "skipped_bytes", "b_unique_chunks",
+                                "b_chunks_in_a", "b_nonzero_chunks")}))
+    check(out["skipped_chunks"] == shared,
+          f"B's publish skipped encrypting {out['skipped_chunks']:.0f} "
+          f"chunks; {shared} of its chunks are A's")
+    check(st_b.unique_chunks == len(dig_b) - shared,
+          f"B uploaded {st_b.unique_chunks} chunks, not the "
+          f"{len(dig_b) - shared} A lacks")
+
+    # 3. the roll, under a streamed restore of B frozen mid-flight
+    names_a, names_b = names_of(blob_a), names_of(blob_b)
+    dead = gc.retire_image(r1, "ckpt-0")
+    check(dead == names_a - names_b, f"retire_image returned {len(dead)} "
+          f"names, not the {len(names_a - names_b)} of A that B lacks")
+    gate = GatedStore(store, GATE_AT_GET)
+    reader = ImageService(gate, ServiceConfig(device="cuda", root=r1),
+                          pins=gc.pins)
+    res = {}
+
+    def restore():
+        try:
+            t = time.perf_counter()
+            tree = reader.open(blob_b, key, root=r1).restore_tree()
+            res["wall_s"] = time.perf_counter() - t
+            res["digests"] = tree_digests(tree)
+        except Exception as e:          # reported by the check below
+            res["error"] = repr(e)
+    th = threading.Thread(target=restore, name="restore-under-roll",
+                          daemon=True)
+    th.start()
+    check(gate.reached.wait(timeout=GATE_TIMEOUT_S),
+          f"the restore never reached its origin GET {GATE_AT_GET}")
+    t_frozen = time.perf_counter()
+    try:
+        check(gc.pins.pinned(r1), "the frozen restore does not pin R1")
+        c0 = COUNTERS.snapshot()
+        check(gc.sweep(r1) == 0, "a sweep of the pinned R1 deleted chunks")
+        check(_deltas(c0, ("gc.sweeps_deferred_pinned",))[
+            "gc.sweeps_deferred_pinned"] == 1, "the sweep was not deferred")
+        check(all(store.has_chunk(r1, n) for n in dead),
+              "a dead chunk went while R1 was pinned")
+        r2 = gc.new_root()
+        before = (gc.stats.migrated_manifests, gc.stats.migrated_chunks)
+        t0 = time.perf_counter()
+        gc.migrate(r1)
+        out["migrate_s"] = time.perf_counter() - t0
+        out["migrated_manifests"] = gc.stats.migrated_manifests - before[0]
+        out["migrated_chunks"] = gc.stats.migrated_chunks - before[1]
+        disk[0] = max(disk[0], disk_bytes(work))
+    finally:
+        out["frozen_s"] = time.perf_counter() - t_frozen
+        gate.release.set()
+    th.join(timeout=GATE_TIMEOUT_S)
+    check(not th.is_alive(), "the restore under the roll did not finish")
+    torch.cuda.synchronize()
+    check("error" not in res, f"the restore under the roll failed: "
+          f"{res.get('error')}")
+    out["restore_under_roll_s"] = res["wall_s"]
+    out["reader_gets"] = gate.calls
+    check(res["digests"] == want_b,
+          "B's restore under the roll differs from B")
+    check(out["migrated_manifests"] == 1, f"migrate moved "
+          f"{out['migrated_manifests']} manifests, not 1")
+    check(out["migrated_chunks"] == len(names_b), f"migrate copied "
+          f"{out['migrated_chunks']} chunks, not B's {len(names_b)}")
+    reader.close()
+    check(not gc.pins.pinned(r1), "R1 is still pinned after the restore")
+    out["swept"] = gc.sweep(r1)
+    check(out["swept"] == len(dead), f"the sweep after the restore "
+          f"deleted {out['swept']} chunks, not {len(dead)}")
+    gc.expire(r1)
+    check(gc.delete_expired(r1) is True, "R1 was not deleted")
+    check(gc.stats.alarms == [] and not store.deletion_frozen,
+          f"expired-root alarms {gc.stats.alarms}")
+    log("gc roll:", json.dumps({k: out[k] for k in (
+        "migrate_s", "migrated_manifests", "migrated_chunks", "frozen_s",
+        "restore_under_roll_s", "reader_gets", "swept")}),
+        f"R1 deleted, {len(dead)} dead chunks, no alarm")
+
+    # 4. serve B from R2
+    blob_b2 = store.get_manifest(r2, "ckpt-1")
+    s = service(r2)
+    model = DecoderLM(cfg, device="cuda")
+    engine, cs = cold_start(model, blob_b2, key, s, root=r2)
+    out["r2_load_seconds"] = cs["load_seconds"]
+    out["r2_origin_fetches"] = cs["origin_fetches"]
+    reqs = [Request(i, prompt=pr, max_new=16)
+            for i, pr in enumerate(ctx["prompts"])]
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_drained()
+    ref = ServeEngine(DecoderLM(cfg, device="cuda").load_flat(flat_b),
+                      max_batch=4, max_len=128)
+    rreqs = [Request(i, prompt=pr, max_new=16)
+             for i, pr in enumerate(ctx["prompts"])]
+    for r in rreqs:
+        ref.submit(r)
+    ref.run_until_drained()
+    check(all(r.done and len(r.out) == 16 for r in reqs),
+          "R2's requests did not complete")
+    check([r.out for r in reqs] == [r.out for r in rreqs],
+          "R2's cold-started tokens differ from B's image-free model's")
+    del engine, ref, model
+    log(f"gc roll: cold start from R2 in {cs['load_seconds']:.2f} s, "
+        f"{cs['origin_fetches']} origin GETs, 4 requests give B's "
+        "image-free tokens")
+
+    # 5. a block view of B in R2
+    h = s.open(blob_b2, key, root=r2)
+    dev = CowBlockDevice(h.reader)
+    off = 3 * CHUNK_SIZE + 12345
+    check(dev.read(off, 4 << 20) == image_bytes(h.layout, flat_b, off,
+                                                4 << 20),
+          "a 4 MiB block read differs from B's image")
+    woff = 7 * CHUNK_SIZE - 777
+    payload = np.random.default_rng(seed + 2).integers(
+        0, 256, 1 << 20, dtype=np.uint8).tobytes()
+    dev.write(woff, payload)
+    base = image_bytes(h.layout, flat_b, woff - 100, (1 << 20) + 200)
+    check(dev.read(woff - 100, (1 << 20) + 200)
+          == base[:100] + payload + base[-100:],
+          "the 1 MiB write does not read back")
+    out["cow_dirty_bytes"] = dev.dirty_bytes
+    fresh = service(r2)
+    hf = fresh.open(blob_b2, key, root=r2)
+    check(hf.reader.read_many([(woff - 100, (1 << 20) + 200)])[0] == base,
+          "a fresh reader does not see the base bytes")
+    sl = sharding_slices(flat_b["embed"].shape, [8, 1], [3, 0])
+    want_shard = np.ascontiguousarray(flat_b["embed"][sl[0][0]:sl[0][1]])
+    shard_chunks = hf.shard_chunks({"embed": sl})
+    g0 = hf.counters.get("read.origin_fetches")
+    hf.prefetch(shard_chunks)
+    g1 = hf.counters.get("read.origin_fetches")
+    got = hf.tensor_shard("embed", sl)
+    g2 = hf.counters.get("read.origin_fetches")
+    out["shard_chunks"] = len(shard_chunks)
+    out["prefetch_origin_gets"] = g1 - g0
+    check(got.tobytes() == want_shard.tobytes(),
+          "the prefetched embed shard differs from B's")
+    check(g2 == g1, f"tensor_shard after prefetch made {g2 - g1} origin "
+          "GETs")
+    log("gc roll: block view", json.dumps({k: out[k] for k in (
+        "cow_dirty_bytes", "shard_chunks", "prefetch_origin_gets")}),
+        "4 MiB read equal, 1 MiB write reads back, base intact, "
+        "prefetched shard equal with no further origin GET")
+    fresh.close()
+    s.close()
+    p.close()
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["peak_disk_bytes"] = disk[0]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"gc roll phase: {out['phase_s']:.2f} s, peak disk "
+        f"{disk[0] / 1e9:.3f} GB")
+    return out
+
+
 def rng_prompt(seed: int, vocab: int) -> list:
     import numpy as np
     return [int(t) for t in
@@ -1258,7 +1600,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
     tmp = ROOT / "build" / f"smoke-store-{args.seed}"
-    shutil.rmtree(tmp, ignore_errors=True)
+    work = ROOT / "build" / f"smoke-gc-{args.seed}"
+    for d in (tmp, work):
+        shutil.rmtree(d, ignore_errors=True)
     try:
         smi_line = phase_toolchain(kernels)
         rng = np.random.default_rng(args.seed)
@@ -1275,8 +1619,10 @@ def main() -> int:
         storm = phase_peer_storm(
             args.seed, kernels, ctx,
             main_path["launches"]["fused_verify_decrypt"] // 2)
+        shutil.rmtree(tmp, ignore_errors=True)  # phase 6 has its own store
+        gc_roll = phase_gc_roll(args.seed, kernels, ctx, work)
         launches = {3: main_path["launches"], 4: l2_path["launches"],
-                    5: storm["launches"]}
+                    5: storm["launches"], 6: gc_roll["launches"]}
         for phase, names in PATH_KERNELS.items():
             for name in names:
                 check(launches[phase][name] > 0, f"kernel {name} was not "
@@ -1285,7 +1631,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        for d in (tmp, work):
+            shutil.rmtree(d, ignore_errors=True)
     table = []
     for name, (src, replaces, phase) in TPU_KERNELS.items():
         r = rows[name]
@@ -1295,6 +1642,10 @@ def main() -> int:
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces,
                       "launches": launches[phase][name],
+                      "launches_by_phase": {
+                          str(p): launches[p][name]
+                          for p, names in PATH_KERNELS.items()
+                          if name in names},
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": None})
@@ -1306,6 +1657,8 @@ def main() -> int:
                           if k != "launches"}
     summary["peer_storm"] = {k: v for k, v in storm.items()
                              if k != "launches"}
+    summary["gc_roll"] = {k: v for k, v in gc_roll.items()
+                          if k != "launches"}
     summary["smoke_seconds"] = time.perf_counter() - t_all
     log("main path:", json.dumps(summary))
     log(json.dumps({"launches": {f"phase{p}": n

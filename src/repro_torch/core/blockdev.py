@@ -1,8 +1,8 @@
 """Demand-paged reads of an image through L1 -> peer -> L2 -> origin,
-split into a fetch stage and a decode stage (the port of
-``repro.core.blockdev``'s ``TieredReader``, with its peer tier, origin
-retries and circuit breaker; GC pins and ``CowBlockDevice`` are later
-slices).
+split into a fetch stage and a decode stage, and a page-granular
+copy-on-write overlay over them (the port of ``repro.core.blockdev``:
+``TieredReader`` with its peer tier, origin retries, circuit breaker
+and GC root pins, and ``CowBlockDevice``).
 
   stage F — fetch only (``fetch_ciphertexts``): L1 probe ->
     single-flight claim -> peer probe (direct holder hits inline,
@@ -24,7 +24,16 @@ Read APIs:
   ``BoundedQueue`` (L1 hits first, then each L2 reconstruction the
   moment its k-th stripe lands, then origin fetches) and
   ``BatchDecoder.decrypt_stream`` decodes tiles on the caller thread
-  while fetch is still running.
+  while fetch is still running;
+* prefetch (``fetch_chunks(..., materialize=False)``): stage F only,
+  warming the tiers; streamed, through the same producer with a
+  consumer that discards what it is handed.
+
+With a ``RootPinRegistry`` (``pins=``, ``core.gc``) every public read
+entry point pins the reader's root for its duration, so a GC generation
+roll can neither delete nor sweep the root under a restore in flight
+(§3.4's epoch/pin protocol). The streamed producer thread calls the
+pinned ``fetch_ciphertexts``, so it holds a pin of its own.
 
 Concurrent fetches of one chunk name are single-flighted through a
 ``FlightTable`` that an ``ImageService`` shares across all its readers.
@@ -36,26 +45,50 @@ origin instead of replaying the bad bytes.
 Origin GETs go through the resilience ladder (``core.retry``): a
 ``CircuitBreaker`` gate, the fetch limiter, a per-attempt deadline for
 stores that take one, and ``RetryPolicy.call`` around the attempt.
+``origin_delay_s`` optionally sleeps that long in each origin GET (a
+simulated origin round trip; 0 by default).
+
+``CowBlockDevice`` adds the write path: writes land in an overlay of
+4 KiB pages encrypted with the overlay key, marked in a dirty bitmap;
+base chunks stay immutable, so every tier shares them. Reads take dirty
+pages from the overlay and all clean spans through one ``read_many``,
+and a write's read-modify-write base pages come through one
+``read_many`` too.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import inspect
 import itertools
 import threading
 import time
 from concurrent.futures import FIRST_COMPLETED, wait
 
-from repro_torch.core.concurrency import BoundedQueue, LazyPool
-from repro_torch.core.crypto import convergent
+import numpy as np
+
+from repro_torch.core.concurrency import QUEUE_DONE, BoundedQueue, LazyPool
+from repro_torch.core.crypto import aes, convergent
 from repro_torch.core.decode import BatchDecoder
 from repro_torch.core.layout import ranges_to_chunks
 from repro_torch.core.manifest import ZERO_CHUNK, Manifest
 from repro_torch.core.retry import BreakerOpenError, is_retryable
 from repro_torch.core.telemetry import COUNTERS
 
+PAGE = 4096
 DEFAULT_PARALLELISM = 8
 DEFAULT_QUEUE_DEPTH = 32      # streamed hand-off queue bound (chunks)
+
+
+def _pinned(fn):
+    """Hold the reader's GC root pin for the duration of a public read
+    entry point (no-op without a registry; nested calls bump the
+    count). See ``TieredReader._pin``."""
+    @functools.wraps(fn)
+    def wrapped(self, *args, **kwargs):
+        with self._pin():
+            return fn(self, *args, **kwargs)
+    return wrapped
 
 
 class _Flight:
@@ -101,8 +134,9 @@ class FetchedBatch:
 class TieredReader:
     def __init__(self, manifest: Manifest, store, root: str | None = None,
                  l1=None, l2=None, concurrency=None,
+                 origin_delay_s: float = 0.0,
                  decoder: BatchDecoder | None = None, counters=None,
-                 flights: FlightTable | None = None, peer=None,
+                 flights: FlightTable | None = None, peer=None, pins=None,
                  retry=None, breaker=None):
         self.m = manifest
         self.store = store
@@ -112,8 +146,11 @@ class TieredReader:
         # this worker's ``PeerClient`` into a shared ``PeerMesh``
         self.peer = peer
         self.concurrency = concurrency
+        self.origin_delay_s = origin_delay_s
         self.decoder = decoder if decoder is not None else BatchDecoder()
         self.counters = counters if counters is not None else COUNTERS
+        # a ``gc.RootPinRegistry``: every public read pins ``self.root``
+        self.pins = pins
         self.last_batch: dict = {}
         self._refs = {c.index: c for c in manifest.chunks}
         table = flights if flights is not None else FlightTable()
@@ -135,6 +172,14 @@ class TieredReader:
         self._store_deadlines = store_get is not None and \
             "deadline_s" in inspect.signature(store_get).parameters
 
+    def _pin(self):
+        """Pin this reader's root for the duration of a read (no-op
+        without a registry). Pins are counted, so nested public calls
+        just nest."""
+        if self.pins is None:
+            return contextlib.nullcontext()
+        return self.pins.pin(self.root)
+
     # ------------------------------------------------------------- chunks
     def _origin_get(self, name: str) -> bytes:
         """One origin GET through the resilience ladder: breaker gate,
@@ -153,6 +198,8 @@ class TieredReader:
                 kw["deadline_s"] = self.retry.attempt_timeout_s
             try:
                 with limiter:
+                    if self.origin_delay_s > 0:
+                        time.sleep(self.origin_delay_s)
                     ct = self.store.get_chunk(self.root, name, **kw)
             except Exception as e:
                 if br is not None and is_retryable(e):
@@ -238,6 +285,7 @@ class TieredReader:
                 self._flights.pop((self.root, ref.name), None)
             flight.event.set()
 
+    @_pinned
     def fetch_chunk(self, index: int) -> bytes:
         """Plaintext of chunk `index` (serial, per-chunk oracle). A
         tampered ciphertext is evicted from every tier before the error
@@ -261,6 +309,7 @@ class TieredReader:
         return self._integrity_rounds(once)
 
     # ------------------------------------------------- stage F: fetch I/O
+    @_pinned
     def fetch_ciphertexts(self, indices,
                           parallelism: int = DEFAULT_PARALLELISM,
                           sink: BoundedQueue | None = None,
@@ -350,9 +399,16 @@ class TieredReader:
         on peer pool threads (futures), and only the names this worker
         now leads in the mesh fall through at once. The joined futures
         are drained after that fall-through (two workers each leading a
-        name the other joined must both make progress), and joins that
-        come back empty (promotion, a dead peer, the deadline) take a
-        second fall-through (``read.peer_fallthroughs``)."""
+        name the other joined must both make progress), as they finish:
+        the joins that came back empty (promotion, a dead peer, the
+        deadline) by the time of each wake-up fall through together
+        (``read.peer_fallthroughs``) before the next wait. An orphan
+        promoted to lead a name after its leader crashed therefore
+        fetches it at once, and the other orphans joined on it are not
+        held behind this call's unrelated joins. (The JAX package drains
+        in probe order with a blocking wait per name, so there the
+        promoted orphans fetch only after every join of the call has
+        finished, and their joiners sit out ``peer_deadline_s``.)"""
         unresolved = dict(lead)
         try:
             pending = []
@@ -380,9 +436,14 @@ class TieredReader:
             if pending:
                 self._fall_through(pending, parallelism, fb, unresolved,
                                    l2_hedge)
-            if peer_futs:
-                again = [name for name, fut in peer_futs.items()
-                         if fut.result()[1] is None and name in unresolved]
+            joined = {fut: name for name, fut in peer_futs.items()}
+            rank = {name: k for k, name in enumerate(peer_futs)}
+            waiting = set(joined)
+            while waiting:
+                done, waiting = wait(waiting, return_when=FIRST_COMPLETED)
+                again = sorted((joined[f] for f in done
+                                if f.result()[1] is None
+                                and joined[f] in unresolved), key=rank.get)
                 if again:
                     self.counters.add("read.peer_fallthroughs", len(again))
                     self._fall_through(again, parallelism, fb, unresolved,
@@ -501,8 +562,9 @@ class TieredReader:
             if isinstance(name, str):
                 self._invalidate_name(name)
 
+    @_pinned
     def fetch_chunks(self, indices, parallelism: int = DEFAULT_PARALLELISM,
-                     streamed: bool = False,
+                     materialize: bool = True, streamed: bool = False,
                      queue_depth: int = DEFAULT_QUEUE_DEPTH,
                      decoder: BatchDecoder | None = None,
                      l2_hedge: bool | None = None) -> dict:
@@ -511,14 +573,24 @@ class TieredReader:
         ``fetch_chunks_streamed``). Byte-identical either way. After an
         ``IntegrityError`` the bad names are evicted from every tier and,
         with a retry policy, the read restarts: the good names are warm
-        L1 hits, the bad ones come from the origin again."""
-        if streamed:
+        L1 hits, the bad ones come from the origin again.
+
+        ``materialize=False`` (prefetch) skips stage D: the tiers are
+        warmed and the result is empty. Streamed, it runs the streaming
+        producer with a consumer that discards the ciphertexts
+        (``_prefetch_streamed``), the fetch path a streamed restore
+        takes."""
+        if streamed and materialize:
             return self.fetch_chunks_streamed(indices, parallelism,
                                               queue_depth, decoder, l2_hedge)
+        if streamed:
+            return self._prefetch_streamed(indices, parallelism, queue_depth,
+                                           l2_hedge)
         return self._integrity_rounds(lambda: self._fetch_chunks_staged(
-            indices, parallelism, decoder, l2_hedge))
+            indices, parallelism, materialize, decoder, l2_hedge))
 
     def _fetch_chunks_staged(self, indices, parallelism: int,
+                             materialize: bool,
                              decoder: BatchDecoder | None,
                              l2_hedge: bool | None) -> dict:
         dec = decoder if decoder is not None else self.decoder
@@ -527,11 +599,11 @@ class TieredReader:
         fetch_wall = time.perf_counter() - t0
         out: dict[int, bytes] = {}
         decode_wall = 0.0
-        if fb.zero_indices:
+        if materialize and fb.zero_indices:
             zero = b"\x00" * self.m.chunk_size
             for i in fb.zero_indices:
                 out[i] = zero
-        if fb.by_name:
+        if materialize and fb.by_name:
             refs = [self._refs[idxs[0]] for idxs in fb.by_name.values()]
             try:
                 plains, decode_wall = dec.decrypt_batch_timed(
@@ -546,6 +618,54 @@ class TieredReader:
                            dec, streamed=False)
         return out
 
+    def _prefetch_streamed(self, indices, parallelism: int,
+                           queue_depth: int,
+                           l2_hedge: bool | None = None) -> dict:
+        """Non-materialising streamed prefetch: the streaming producer
+        warms every tier while this thread drains and drops the
+        ciphertext stream (no decode). Returns {}."""
+        t0 = time.perf_counter()
+        q = BoundedQueue(queue_depth)
+        holder: dict = {}
+
+        def produce():
+            try:
+                holder["fb"] = self.fetch_ciphertexts(
+                    indices, parallelism, sink=q, l2_hedge=l2_hedge)
+            except BaseException as e:
+                q.poison(e)
+            else:
+                q.close()
+
+        prod = threading.Thread(target=produce, name="prefetch-fetch",
+                                daemon=True)
+        prod.start()
+        try:
+            while q.get() is not QUEUE_DONE:
+                pass            # drain: the tiers warm, nothing decodes
+        except BaseException:
+            q.cancel()          # producer puts now drop
+            prod.join()
+            raise
+        prod.join()
+        fb: FetchedBatch = holder["fb"]
+        nchunks = len(fb.zero_indices) + sum(len(v)
+                                             for v in fb.by_name.values())
+        self.counters.add("read.batched_chunks", nchunks)
+        self.counters.max_update("stream.queue_hwm", q.high_water)
+        self.last_batch = {
+            "chunks": nchunks,
+            "fetched": len(fb.by_name) - fb.l1_hits,
+            "parallelism": int(parallelism),
+            "wall_s": time.perf_counter() - t0,
+            "streamed": True,
+            "materialized": False,
+            "queue_hwm": q.high_water,
+            "queue_depth": q.maxsize,
+        }
+        return {}
+
+    @_pinned
     def fetch_chunks_streamed(self, indices,
                               parallelism: int = DEFAULT_PARALLELISM,
                               queue_depth: int = DEFAULT_QUEUE_DEPTH,
@@ -662,10 +782,12 @@ class TieredReader:
             pos += take
         return b"".join(parts)
 
+    @_pinned
     def read(self, offset: int, length: int) -> bytes:
         """Serial read: chunks fetched one at a time, in order."""
         return self._assemble(offset, length, {})
 
+    @_pinned
     def read_many(self, ranges, parallelism: int = DEFAULT_PARALLELISM,
                   streamed: bool = False,
                   queue_depth: int = DEFAULT_QUEUE_DEPTH,
@@ -680,3 +802,119 @@ class TieredReader:
                                    queue_depth=queue_depth, decoder=decoder,
                                    l2_hedge=l2_hedge)
         return [self._assemble(off, ln, chunks) for off, ln in ranges]
+
+
+class CowBlockDevice:
+    """Read/write device: an immutable base (``TieredReader``) and an
+    overlay of PAGE-sized pages, encrypted at rest with `overlay_key`
+    (AES-256-CTR, the page number as IV), marked in a dirty bitmap. A
+    sub-page write reads, modifies and writes its page back (§2.1).
+    Reads batch every clean span into one ``read_many``."""
+
+    def __init__(self, reader: TieredReader, overlay_key: bytes | None = None):
+        self.reader = reader
+        self.size = reader.m.image_size
+        self.npages = (self.size + PAGE - 1) // PAGE
+        self.bitmap = np.zeros(self.npages, dtype=bool)
+        self._overlay: dict[int, bytes] = {}      # page -> ciphertext
+        self.key = overlay_key or b"\x01" * 32
+
+    def _store_page(self, page: int, plain: bytes):
+        iv = page.to_bytes(16, "big")
+        self._overlay[page] = aes.ctr_encrypt(plain, self.key, iv16=iv)
+        self.bitmap[page] = True
+
+    def _load_page(self, page: int) -> bytes:
+        iv = page.to_bytes(16, "big")
+        return aes.ctr_decrypt(self._overlay[page], self.key, iv16=iv)
+
+    def _clean_spans(self, offset: int, end: int) -> list:
+        """Maximal contiguous non-overlay byte runs within [offset, end)."""
+        spans: list[list[int]] = []
+        pos = offset
+        while pos < end:
+            page = pos // PAGE
+            take = min(PAGE - pos % PAGE, end - pos)
+            if not (page < self.npages and self.bitmap[page]):
+                if spans and spans[-1][0] + spans[-1][1] == pos:
+                    spans[-1][1] += take
+                else:
+                    spans.append([pos, take])
+            pos += take
+        return [(o, ln) for o, ln in spans]
+
+    def read(self, offset: int, length: int,
+             parallelism: int = DEFAULT_PARALLELISM) -> bytes:
+        end = offset + length
+        spans = self._clean_spans(offset, end)
+        fetched: dict[int, bytes] = {}
+        if spans:
+            # clamp to the image; anything past it reads as zeros
+            capped = [(o, max(0, min(ln, self.size - o))) for o, ln in spans]
+            bufs = iter(self.reader.read_many(
+                [(o, ln) for o, ln in capped if ln > 0], parallelism))
+            for (o, ln), (_, cln) in zip(spans, capped):
+                data = next(bufs) if cln > 0 else b""
+                fetched[o] = data.ljust(ln, b"\x00")
+        out = bytearray()
+        pos = offset
+        while pos < end:
+            page = pos // PAGE
+            within = pos % PAGE
+            take = min(PAGE - within, end - pos)
+            if page < self.npages and self.bitmap[page]:
+                out += self._load_page(page)[within:within + take]
+                pos += take
+            else:
+                span = fetched[pos]      # the whole clean span from here
+                out += span
+                pos += len(span)
+        return bytes(out)
+
+    def _base_pages_batched(self, pages: list,
+                            parallelism: int = DEFAULT_PARALLELISM) -> dict:
+        """{page: PAGE bytes} of base-image content for `pages`, through
+        one ``read_many`` (pages past the image end read as zeros)."""
+        capped = [(p, min(PAGE, self.size - p * PAGE)) for p in pages]
+        ranges = [(p * PAGE, ln) for p, ln in capped if ln > 0]
+        bufs = iter(self.reader.read_many(ranges, parallelism)) if ranges \
+            else iter(())
+        return {p: (next(bufs).ljust(PAGE, b"\x00") if ln > 0
+                    else b"\x00" * PAGE)
+                for p, ln in capped}
+
+    def write(self, offset: int, data: bytes,
+              parallelism: int = DEFAULT_PARALLELISM):
+        pos, end = offset, offset + len(data)
+        # only the partially covered edge pages need their base bytes;
+        # fetch all of them through one read_many
+        need_base = []
+        while pos < end:
+            page = pos // PAGE
+            within = pos % PAGE
+            take = min(PAGE - within, end - pos)
+            partial = not (within == 0 and take == PAGE)
+            if partial and not (page < self.npages and self.bitmap[page]):
+                need_base.append(page)
+            pos += take
+        base_pages = self._base_pages_batched(need_base, parallelism) \
+            if need_base else {}
+        pos, src = offset, 0
+        while pos < end:
+            page = pos // PAGE
+            within = pos % PAGE
+            take = min(PAGE - within, end - pos)
+            if within == 0 and take == PAGE:
+                pagebuf = data[src:src + PAGE]
+            else:
+                base = self._load_page(page) if self.bitmap[page] \
+                    else base_pages[page]
+                pagebuf = base[:within] + data[src:src + take] \
+                    + base[within + take:]
+            self._store_page(page, pagebuf)
+            pos += take
+            src += take
+
+    @property
+    def dirty_bytes(self) -> int:
+        return int(self.bitmap.sum()) * PAGE

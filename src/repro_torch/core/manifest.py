@@ -59,6 +59,12 @@ def seal(manifest: Manifest, tenant_key: bytes, nonce: bytes | None = None) -> b
                           "tag": tag}, use_bin_type=True)
 
 
+def read_public(blob: bytes) -> dict:
+    """GC-side read: chunk list + layout, NO keys, NO tenant key needed."""
+    outer = msgpack.unpackb(blob, raw=False)
+    return msgpack.unpackb(outer["body"], raw=False)
+
+
 def open_manifest(blob: bytes, tenant_key: bytes) -> Manifest:
     """Worker-side open: authenticates the whole document, decrypts keys."""
     outer = msgpack.unpackb(blob, raw=False)

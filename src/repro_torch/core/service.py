@@ -1,5 +1,6 @@
 """ImageService: the process-wide read-path agent (the port of
-``repro.core.service``; session TTLs are a later slice).
+``repro.core.service``; session TTLs and the decode-stage policy knobs
+are a later slice).
 
 * ``ServiceConfig`` — the knobs the port uses, with the JAX package's
   names and defaults, except that ``decode_backend`` defaults to
@@ -15,7 +16,13 @@
   erasure kernels of the service's device as its hooks. The peer tier
   is passed in as this worker's client of a mesh that spans many
   services (``build_peer_mesh``, ``ImageService(..., peer=...)``).
-* ``ImageHandle`` — reads of one opened image under a ``ReadPolicy``.
+  With the GC's ``RootPinRegistry`` and ``RefcountIndex``
+  (``ImageService(..., pins=, refcounts=)``) every reader pins its root
+  while it reads and the publisher registers each image it seals.
+* ``ImageHandle`` — reads of one opened image under a ``ReadPolicy``:
+  whole trees, shards, and prefetches that only warm the tiers.
+* ``single_image_service`` — a private service with no tiers of its
+  own, the substrate of ``core.loader.ImageReader``.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ from repro_torch.core.decode import (
 from repro_torch.core.layout import (
     CHUNK_SIZE,
     ImageLayout,
+    ranges_to_chunks,
     read_tensor,
     shard_byte_ranges,
 )
@@ -100,6 +108,15 @@ class ReadPolicy:
         if self.parallelism < 1:
             raise ValueError("parallelism must be >= 1")
 
+    @classmethod
+    def from_legacy(cls, *, batched: bool = True, streamed: bool = True,
+                    parallelism: int = DEFAULT_PARALLELISM) -> "ReadPolicy":
+        """The policy of the legacy ``batched=/streamed=/parallelism=``
+        keywords (the ``ImageReader`` shim)."""
+        mode = "serial" if not batched else ("streamed" if streamed
+                                             else "staged")
+        return cls(mode=mode, parallelism=parallelism)
+
     @property
     def streamed(self) -> bool:
         return self.mode == "streamed"
@@ -120,10 +137,11 @@ class ServiceConfig:
     l2_flash_bytes: int | None = None
     max_coldstarts: int = 4             # admission control (§4.2)
     fetch_concurrency: int = 16         # 0 = unbounded origin reads
-    decode_backend: str = "torch-fused"  # also runs the publish path
+    decode_backend: str = "torch-fused"  # publish too, unless publish_backend
     max_batch_bytes: int | str = "auto"  # "auto" = the backend's tile
     session_cap: int = 64               # LRU session bound (0 = unbounded)
     manifest_cap: int = 128             # LRU manifest bound (0 = unbounded)
+    origin_delay_s: float = 0.0         # simulated origin RTT per GET
     root: str | None = None             # default root for open()/publish()
     default_policy: ReadPolicy = field(default_factory=ReadPolicy)
     device: str = "cuda"
@@ -137,7 +155,15 @@ class ServiceConfig:
     peer_fanout: int = 4                # provisioning-tree arity
     peer_deadline_s: float = 2.0        # bounded wait on a joined flight
     peer_registration: str = "all"      # "all" | "origin" (see peer.py)
+    # publish-side knobs (the write path: ``core.publish.PublishPipeline``
+    # built lazily by ``ImageService.publisher``)
+    publish_backend: str | None = None  # None = decode_backend
+    publish_tile_bytes: int | str | None = None  # None = backend default
+    upload_parallelism: int = 8         # bounded-parallel PUTs per service
     publish_warm_l1: bool = True        # push fresh ciphertexts into L1/peer
+    # sidecar file of the publish NameIndex (skip-encryption dedup
+    # survives restarts); None = in memory only
+    publish_name_index_path: str | None = None
     # origin-tier resilience (core.retry / core.faults), all off by
     # default
     retry_attempts: int = 0             # total origin attempts; 0/1 = off
@@ -157,6 +183,8 @@ class ServiceConfig:
     def __post_init__(self):
         resolve_device(self.device)
         resolve_backend_name(self.decode_backend)
+        if self.publish_backend is not None:
+            resolve_backend_name(self.publish_backend)
 
 
 _SVC_SEQ = itertools.count()
@@ -166,19 +194,27 @@ class ImageService:
     """Process-wide agent: construct once, ``open()`` per image."""
 
     def __init__(self, store, config: ServiceConfig | None = None, *,
-                 l2=None, peer=None):
+                 l1=None, l2=None, peer=None, fetch_limiter=None, pins=None,
+                 refcounts=None):
         cfg = config if config is not None else ServiceConfig()
         self.config = cfg
         self.device = resolve_device(cfg.device)
         self.store = store
         # a unique telemetry name per service: LocalCache keys its
         # hit/miss counters off it
-        self.l1 = LocalCache(cfg.l1_bytes, name=f"svc{next(_SVC_SEQ)}.l1") \
-            if cfg.l1_bytes > 0 else None
+        if l1 is not None:
+            self.l1 = l1
+        else:
+            self.l1 = LocalCache(cfg.l1_bytes,
+                                 name=f"svc{next(_SVC_SEQ)}.l1") \
+                if cfg.l1_bytes > 0 else None
         self.l2 = l2 if l2 is not None else self._build_l2(cfg)
         self.peer = peer
-        self.fetch_limiter = BlockingLimiter(cfg.fetch_concurrency) \
-            if cfg.fetch_concurrency > 0 else None
+        if fetch_limiter is not None:
+            self.fetch_limiter = fetch_limiter
+        else:
+            self.fetch_limiter = BlockingLimiter(cfg.fetch_concurrency) \
+                if cfg.fetch_concurrency > 0 else None
         self.admission = RejectingLimiter(cfg.max_coldstarts) \
             if cfg.max_coldstarts > 0 else None
         self.counters = COUNTERS
@@ -199,6 +235,11 @@ class ImageService:
             counters=self.counters) \
             if cfg.breaker_threshold is not None else None
         self.flights = FlightTable()
+        # GC integration (both optional; wire the same objects into the
+        # ``GenerationalGC``): readers pin their root while they read,
+        # and the publisher registers each image it seals
+        self.pins = pins
+        self.refcounts = refcounts
         self._publisher: PublishPipeline | None = None
         self._decoders: dict[tuple, BatchDecoder] = {}
         self._scopes: dict[str, ScopedCounters] = {}
@@ -317,12 +358,15 @@ class ImageService:
 
     # -------------------------------------------------------------- open
     def open(self, manifest_blob: bytes, tenant_key: bytes, *,
-             root: str | None = None, tenant: str | None = None
-             ) -> "ImageHandle":
+             root: str | None = None, tenant: str | None = None,
+             decoder: BatchDecoder | None = None) -> "ImageHandle":
         """Open an image session. `root` is the root the manifest was
-        fetched from (default: the config root, then the manifest's);
-        `tenant` defaults to the manifest's. Handles of the same
-        (image, root, tenant) share one ``TieredReader``."""
+        fetched from (default: the config root, then the manifest's;
+        after a GC migration it differs from the manifest's, which names
+        the root whose salt the chunks carry); `tenant` defaults to the
+        manifest's. Handles of the same (image, root, tenant) share one
+        ``TieredReader``; a caller-owned `decoder` gets a reader of its
+        own, which is not cached."""
         if self._closed:
             raise RuntimeError("ImageService is closed")
 
@@ -341,11 +385,16 @@ class ImageService:
             reader = TieredReader(
                 manifest, self.store, root=root, l1=self.l1, l2=self.l2,
                 concurrency=self.fetch_limiter,
-                decoder=self.decoder_for(self.config.default_policy),
+                origin_delay_s=self.config.origin_delay_s,
+                decoder=decoder if decoder is not None
+                else self.decoder_for(self.config.default_policy),
                 counters=scope, flights=self.flights, peer=self.peer,
-                retry=self.retry, breaker=self.breaker)
+                pins=self.pins, retry=self.retry, breaker=self.breaker)
             return reader, scope
 
+        if decoder is not None:
+            reader, scope = session()
+            return ImageHandle(self, manifest, layout, reader, tenant, scope)
         reader, scope = self._cached(
             self._sessions, (manifest.image_id, root, tenant),
             self.config.session_cap, session)
@@ -353,23 +402,33 @@ class ImageService:
 
     # ------------------------------------------------------------- publish
     def publisher(self) -> PublishPipeline:
-        """The service's shared write path (lazily built): the decode
-        backend's hooks on the service's device, the service's retry
-        policy around uploads, and (``publish_warm_l1``) the fresh
-        ciphertexts pushed into this service's L1 and peer tier."""
+        """The service's shared write path (lazily built): the publish
+        backend's hooks on the service's device, bounded-parallel
+        single-flighted uploads under the service's retry policy, the
+        name index (with its sidecar file when the config names one),
+        the refcounts when the service carries them, and
+        (``publish_warm_l1``) the fresh ciphertexts pushed into this
+        service's L1 and peer tier."""
         with self._lock:
             if self._publisher is None:
-                warm = self.config.publish_warm_l1
+                cfg = self.config
+                warm = cfg.publish_warm_l1
                 self._publisher = PublishPipeline(
-                    self.store, backend=self.config.decode_backend,
-                    tile_bytes=self.config.max_batch_bytes,
+                    self.store,
+                    backend=cfg.publish_backend or cfg.decode_backend,
+                    tile_bytes=cfg.publish_tile_bytes,
+                    upload_parallelism=cfg.upload_parallelism,
                     l1=self.l1 if warm else None,
-                    peer=self.peer if warm else None, retry=self.retry,
-                    counters=self.counters, device=self.device)
+                    peer=self.peer if warm else None,
+                    refcounts=self.refcounts, counters=self.counters,
+                    retry=self.retry,
+                    name_index_path=cfg.publish_name_index_path,
+                    device=self.device)
             return self._publisher
 
     def publish(self, tree, *, tenant: str, tenant_key: bytes,
                 root: str | None = None, salt_epoch: int = 0,
+                image_id: str | None = None,
                 chunk_size: int = CHUNK_SIZE) -> tuple:
         """Publish a tree of arrays as an image: (manifest blob,
         CreateStats)."""
@@ -380,7 +439,10 @@ class ImageService:
             raise ValueError("publish needs a root (or ServiceConfig.root)")
         return self.publisher().publish(
             tree, tenant=tenant, tenant_key=tenant_key, root=root,
-            salt_epoch=salt_epoch, chunk_size=chunk_size)
+            salt_epoch=salt_epoch, image_id=image_id, chunk_size=chunk_size)
+
+    def snapshot(self) -> dict:
+        return self.counters.snapshot()
 
 
 class ImageHandle:
@@ -446,6 +508,43 @@ class ImageHandle:
             raw = b"".join(next(bufs) for _ in ranges)
             out[name] = np.frombuffer(raw, dt).reshape(shape)
         return out
+
+    def tensor_shard(self, name: str, dim_slices: list,
+                     policy: ReadPolicy | None = None) -> np.ndarray:
+        """Fetch only the bytes of one rectangular shard (batched)."""
+        return self.restore_shards({name: dim_slices}, policy)[name]
+
+    def shard_chunks(self, shard_slices: dict) -> list:
+        """Chunk indices needed for {tensor_name: [(start, stop) per dim]}."""
+        ranges = []
+        for name, sl in shard_slices.items():
+            ranges.extend(shard_byte_ranges(self.layout.tensors[name], sl))
+        return ranges_to_chunks(ranges, self.manifest.chunk_size)
+
+    def prefetch(self, chunk_indices: list,
+                 policy: ReadPolicy | None = None):
+        """Warm the tiers for `chunk_indices` without decoding: the
+        ciphertexts land in L1 (and L2, peers), none is decrypted. A
+        streamed policy (the default) warms through the streaming
+        producer, the path the streamed restore takes."""
+        p, _ = self._resolve(policy)
+        self.reader.fetch_chunks(chunk_indices, p.parallelism,
+                                 materialize=False, streamed=p.streamed,
+                                 queue_depth=p.queue_depth,
+                                 l2_hedge=p.l2_hedge)
+
+
+def single_image_service(store, *, l1=None, l2=None, peer=None,
+                         fetch_limiter=None, origin_delay_s: float = 0.0,
+                         device="cuda") -> ImageService:
+    """A private service with no tiers or limiters of its own (only the
+    objects passed in): the substrate of the ``ImageReader`` shim and of
+    one-shot scripts."""
+    cfg = ServiceConfig(l1_bytes=0, l2_nodes=0, fetch_concurrency=0,
+                        max_coldstarts=0, origin_delay_s=origin_delay_s,
+                        device=device)
+    return ImageService(store, cfg, l1=l1, l2=l2, peer=peer,
+                        fetch_limiter=fetch_limiter)
 
 
 def build_peer_mesh(config: ServiceConfig, num_workers: int, *,

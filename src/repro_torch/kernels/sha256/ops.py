@@ -15,6 +15,8 @@ two-pass verify.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -25,6 +27,9 @@ M32 = 0xFFFFFFFF
 ALIGN = 16          # message offsets in a packed buffer (16-byte loads)
 GEOMETRY_KEYS = ("group", "stages", "warps", "threads", "smem_bytes",
                  "blocks")
+# one CUDA-graph capture at a time: PyTorch captures on a side stream
+# that all threads share
+_CAPTURE_LOCK = threading.Lock()
 
 
 def pack_messages(datas: list) -> tuple:
@@ -146,7 +151,11 @@ def _graphed(fn, *args):
     """`fn(*args)` captured once as a CUDA graph and returned as a
     replay: the same PyTorch ops on the same tensors, launched without
     the per-op cost that otherwise dominates thousands of tiny steps.
-    The warm-up run's effect on `args[0]` is undone before capture."""
+    The warm-up run's effect on `args[0]` is undone before capture.
+    The capture runs in ``thread_local`` mode, so what other threads do
+    meanwhile (kernel launches, copies, allocations on their own
+    streams) neither fails nor invalidates it, and holds
+    ``_CAPTURE_LOCK``."""
     saved = args[0].clone()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -154,7 +163,8 @@ def _graphed(fn, *args):
         fn(*args)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with _CAPTURE_LOCK, torch.cuda.graph(graph,
+                                         capture_error_mode="thread_local"):
         fn(*args)
     args[0].copy_(saved)
     return graph.replay

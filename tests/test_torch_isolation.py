@@ -40,7 +40,8 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.kernels.gf256.ops",
               "repro_torch.kernels.parity.ops",
               "repro_torch.core.cache.peer", "repro_torch.core.retry",
-              "repro_torch.core.faults"):
+              "repro_torch.core.faults", "repro_torch.core.gc",
+              "repro_torch.core.loader"):
         assert m in res["modules"]
 
 

@@ -5,8 +5,9 @@ registration policy, a crashed holder, tree repair past a dead parent,
 ``invalidate``, ``probe_chunks`` with inline hits, leads and joins),
 leader promotion on ``abandon``, ``build_peer_mesh``, and restores
 through port ``ImageService`` workers sharing one mesh: a peer-only
-second worker, a storm, and a storm with a peer crashed mid-transfer.
-Tolerance: the same latencies (the same numpy streams), directory and
+second worker, a storm, a storm with a peer crashed mid-transfer, and
+a storm over a slow origin whose leading worker crashes after a few
+transfers. Tolerance: the same latencies (the same numpy streams), directory and
 counter deltas; every restore equal byte for byte to the JAX package's
 ``serial`` restore.
 
@@ -201,14 +202,17 @@ def test_build_peer_mesh_from_config():
 # ----------------------------------------------- restores over the mesh
 
 class CountingStore(ChunkStore):
-    def __init__(self, root_dir):
+    def __init__(self, root_dir, delay_s: float = 0.0):
         super().__init__(root_dir)
         self.gets = 0
+        self.delay_s = delay_s
         self._lock = threading.Lock()
 
     def get_chunk(self, root, name):
         with self._lock:
             self.gets += 1
+        if self.delay_s:
+            time.sleep(self.delay_s)
         return super().get_chunk(root, name)
 
 
@@ -222,16 +226,21 @@ def image(tmp_path_factory):
             "zeros": np.zeros(3 * CS, np.uint8)}
     blob, stats = create_image(tree, tenant="t", tenant_key=KEY,
                                store=JStore(d), root=ROOT, chunk_size=CS)
+    return d, blob, _jax_restore(d, blob), stats.unique_chunks
+
+
+def _jax_restore(d, blob, mode="staged"):
+    """The JAX package's ``serial``-backend restore of `blob` in `d`."""
     jsvc = JService(JStore(d), JConfig(l1_bytes=0))
     ref = jsvc.open(blob, KEY).restore_tree(
-        policy=JPolicy(mode="staged", decode_backend="serial"))
+        policy=JPolicy(mode=mode, decode_backend="serial"))
     jsvc.close()
-    return d, blob, ref, stats.unique_chunks
+    return ref
 
 
-def _worker(store, mesh, i):
-    return ImageService(store, ServiceConfig(device="cpu", root=ROOT),
-                        peer=mesh.client(i))
+def _worker(store, mesh, i, cfg=None, client=None):
+    cfg = cfg if cfg is not None else ServiceConfig(device="cpu", root=ROOT)
+    return ImageService(store, cfg, peer=client or mesh.client(i))
 
 
 def _same(flat, ref):
@@ -240,15 +249,16 @@ def _same(flat, ref):
         assert flat[k].tobytes() == ref[k].tobytes(), k
 
 
-def _storm(store, blob, mesh, n):
-    workers = [_worker(store, mesh, i) for i in range(n)]
+def _storm(store, blob, mesh, n, cfg=None, clients=None, policy=POLICY):
+    workers = [_worker(store, mesh, i, cfg, clients and clients[i])
+               for i in range(n)]
     barrier = threading.Barrier(n)
     out, errs = {}, []
 
     def work(i):
         try:
             barrier.wait(timeout=30)
-            out[i] = workers[i].open(blob, KEY).restore_tree(policy=POLICY)
+            out[i] = workers[i].open(blob, KEY).restore_tree(policy=policy)
         except Exception as e:          # reported by the caller's assert
             errs.append(e)
     threads = [threading.Thread(target=work, args=(i,)) for i in range(n)]
@@ -306,5 +316,62 @@ def test_crashed_peer_mid_storm_stays_byte_identical(image):
     mesh.transfer_hook = crash_src
     out = _storm(store, blob, mesh, n)
     assert crashed                      # the hook fired
+    for i in range(n):
+        _same(out[i], ref)
+
+
+# A crashed leader. The worker that leads every flight of the storm stops
+# serving after LEADER_CRASH_AFTER transfers; its own restore goes on,
+# so it still resolves each flight, and each flight's joiners, cut off
+# from the dead leader, elect one of themselves to fetch the name from
+# the origin. The elected orphan must fetch at once, not after its
+# other joins have finished, or its fellow orphans sit out the peer
+# deadline and fetch the name again: past twice the distinct chunks.
+STORM_CHUNKS = 240
+LEADER_CRASH_AFTER = 5
+ORIGIN_DELAY_S = 0.1
+STORM_DEADLINE_S = 1.0
+
+
+def test_crashed_leader_storm_stays_within_twice_unique(tmp_path):
+    rng = np.random.default_rng(12)
+    tree = {"w": rng.standard_normal(STORM_CHUNKS * CS // 4)
+            .astype(np.float32)}
+    cfg = ServiceConfig(device="cpu", root=ROOT, decode_backend="python",
+                        peer_deadline_s=STORM_DEADLINE_S)
+    pub = ImageService(ChunkStore(tmp_path), cfg)
+    blob, stats = pub.publish(tree, tenant="t", tenant_key=KEY,
+                              chunk_size=CS)
+    pub.close()
+    unique = stats.unique_chunks
+    assert unique == STORM_CHUNKS
+    ref = _jax_restore(tmp_path, blob, mode="serial")
+    store = CountingStore(tmp_path, delay_s=ORIGIN_DELAY_S)
+    n = 4
+    led = [0] * n
+    crashed = []
+    lock = threading.Lock()
+
+    def crash_leader(name, src, dst):
+        if crashed or mesh.workers[src].served < LEADER_CRASH_AFTER \
+                or led[src] < max(led):
+            return
+        with lock:
+            if not crashed:
+                crashed.append(src)
+                mesh.set_fault(src, tdist.FaultPlan.crashed())
+    mesh = build_peer_mesh(cfg, n, seed=6, transfer_hook=crash_leader)
+    clients = [mesh.client(i) for i in range(n)]
+    for i, client in enumerate(clients):    # count the flights each leads
+        def counted(names, chunk_len, on_ready, _probe=client.probe_chunks,
+                    _i=i):
+            leads, futs = _probe(names, chunk_len, on_ready)
+            led[_i] += len(leads)
+            return leads, futs
+        client.probe_chunks = counted
+    out = _storm(store, blob, mesh, n, cfg, clients,
+                 ReadPolicy(mode="streamed", parallelism=8))
+    assert crashed and led[crashed[0]] == unique
+    assert store.gets <= 2 * unique, (store.gets, unique)
     for i in range(n):
         _same(out[i], ref)
