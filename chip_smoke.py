@@ -89,8 +89,28 @@ Phases (any failure exits non-zero):
    chunks equals B's image bytes, an unaligned 1 MiB write reads back,
    a fresh reader still sees the base, and a prefetched ``embed`` shard
    reads back equal with no further origin GET.
+7. the launcher — SmolLM-360M at full width published into a fresh
+   store under the launcher's tenant key, then served by
+   ``repro_torch.launch.serve.main(["--arch", "smollm-360m",
+   "--no-reduced", "--store", ..., "--eager-flush", "--l2-nodes", "0",
+   "--requests", "8", "--max-new", "8"])`` in process with the decode
+   tile left at ``"auto"`` (the autotune sweep runs here): its 8 greedy
+   outputs must equal a ``ServeEngine`` over the same weights loaded
+   directly, the restore must launch the fused kernel beyond the
+   sweep's launches, and the stats must carry ``eager_flushes``; the
+   chosen tile and each candidate's timed rate are printed. Then a
+   reduced ``--publish`` launcher with ``--l2-nodes 6 --peer-workers 2
+   --retry-attempts 3 --breaker-threshold 0.5 --origin-fault
+   error_p=0.02`` must serve every request, launch SHA-256 and AES and
+   give up no retry. Then ``DecoderLM.prefill``: 4 prompts of 256
+   tokens at SmolLM-360M's full width in bfloat16 against prefill by
+   decoding (argmax equal, logits within ``PREFILL_BF16_TOL``), and
+   starcoder2-15b at full width cut to 2 of 40 layers, one 4608-token
+   prompt past its 4096-token window, in float32, with the card route
+   of ``flash_attn`` held against its plain blocked version at every
+   layer (``FLASH_F32_TOL``); prefill ms and peak memory printed.
 
-The last lines are the launch counts of phases 3 to 6, the kernel
+The last lines are the launch counts of phases 3 to 7, the kernel
 table (``{"kernels": [...]}``, each kernel's launches counted on the path
 that runs it, and on every path in ``launches_by_phase``), the
 ``nvidia-smi`` name/power-limit line and
@@ -164,6 +184,25 @@ GF_GENERAL_TERM_READS = 4
 SPIN_CYCLES = 200_000_000
 QUEUED_SPIN_MS = 50.0
 KIB512 = 512 << 10
+# phases 3-6 pin the kernel backends' registered decode tile
+# (core.decode.KERNEL_TILE_BYTES), so their numbers stay comparable
+# with runs from before "auto" autotuned; phase 7 leaves it at "auto"
+TILE = 128 << 20
+# phase 7: prefill at SmolLM-360M's full width (bfloat16) against prefill
+# by decoding: greedy tokens equal and the last-position logits within
+# PREFILL_BF16_TOL x max |logit|. The two round different bfloat16 sums
+# through 32 layers (batched matmuls against one-row ones), so the
+# tolerance is wider than the 2e-2 that tests/test_torch_model.py holds
+# two frameworks to at 2 layers; the first H100 run measured 1.7%
+# (0.0508 of 2.98). starcoder2-15b at full width, depth cut to
+# STARCODER_LAYERS of 40, one prompt past its 4096-token window, float32,
+# the card route of flash_attn within FLASH_F32_TOL of its plain version
+PREFILL_PROMPTS = 4
+PREFILL_LEN = 256
+PREFILL_BF16_TOL = 3e-2
+STARCODER_LAYERS = 2
+STARCODER_PROMPT = 4608
+FLASH_F32_TOL = 1e-4
 STRIPE = KIB512 // 4                    # a 512 KiB chunk's 4-of-5 stripe
 ODD_LENGTHS = (0, 1, 55, 56, 63, 64, 65, 4096, KIB512)
 STRIPE_LENGTHS = (0, 1, 3, 5, 15, 16, 17, STRIPE)
@@ -205,7 +244,9 @@ PATH_KERNELS = {3: ("fused_verify_decrypt", "sha256_many",
                 4: ("parity", "gf256", "fused_verify_decrypt"),
                 5: ("fused_verify_decrypt",),
                 6: ("sha256_many", "aes_encrypt_many",
-                    "fused_verify_decrypt")}
+                    "fused_verify_decrypt"),
+                7: ("fused_verify_decrypt", "sha256_many",
+                    "aes_encrypt_many")}
 # phase 5: the storm's workers (worker STORM_WORKERS idles until the
 # poisoned-copy restore). Every worker asks for the image's chunks in
 # the same order, so the first to probe leads nearly every flight (on
@@ -821,7 +862,8 @@ def phase_main_path(seed: int, kernels, tmp: Path) -> tuple:
     key = hashlib.sha256(b"smoke tenant key").digest()
     out = {}
     store = ChunkStore(tmp)
-    svc = ImageService(store, ServiceConfig(device="cuda", root="r0"))
+    svc = ImageService(store, ServiceConfig(device="cuda", root="r0",
+                                            max_batch_bytes=TILE))
     kernels.reset_launches()
     t0 = time.perf_counter()
     blob, st = svc.publish(flat, tenant="smoke", tenant_key=key)
@@ -840,7 +882,8 @@ def phase_main_path(seed: int, kernels, tmp: Path) -> tuple:
     svc.close()
 
     # a worker that never published: its L1 starts empty
-    svc = ImageService(store, ServiceConfig(device="cuda", root="r0"))
+    svc = ImageService(store, ServiceConfig(device="cuda", root="r0",
+                                            max_batch_bytes=TILE))
     model = DecoderLM(cfg, device="cuda")
     engine, cs = cold_start(model, blob, key, svc)
     check(cs["origin_fetches"] >= st.unique_chunks,
@@ -925,7 +968,7 @@ def phase_l2_path(kernels, ctx: dict) -> tuple:
 
     # worker A: empty L1, empty L2 -> every chunk from the origin
     a = ImageService(store, ServiceConfig(device="cuda", root="r0",
-                                          l2_nodes=12))
+                                          l2_nodes=12, max_batch_bytes=TILE))
     ha = a.open(blob, key)
     before = ha.counters.get("read.origin_fetches")
     t0 = time.perf_counter()
@@ -956,8 +999,8 @@ def phase_l2_path(kernels, ctx: dict) -> tuple:
 
     # worker B: empty L1, A's L2 with cache-000 crashed, staged cold start
     cfg = get_config("smollm-360m")
-    b = ImageService(store, ServiceConfig(device="cuda", root="r0"),
-                     l2=a.l2)
+    b = ImageService(store, ServiceConfig(device="cuda", root="r0",
+                                          max_batch_bytes=TILE), l2=a.l2)
     model = DecoderLM(cfg, device="cuda")
     loaded = {}
     load_flat = model.load_flat
@@ -999,8 +1042,8 @@ def phase_l2_path(kernels, ctx: dict) -> tuple:
     b.close()
 
     # a third worker: streamed restore from the same L2
-    c = ImageService(store, ServiceConfig(device="cuda", root="r0"),
-                     l2=a.l2)
+    c = ImageService(store, ServiceConfig(device="cuda", root="r0",
+                                          max_batch_bytes=TILE), l2=a.l2)
     hc = c.open(blob, key)
     before = hc.counters.get("read.origin_fetches")
     t0 = time.perf_counter()
@@ -1057,7 +1100,7 @@ def phase_peer_storm(seed: int, kernels, ctx: dict,
                          seed=seed)
     cfg = ServiceConfig(device="cuda", root="r0", retry_attempts=5,
                         retry_seed=seed, breaker_threshold=0.5,
-                        peer_fanout=STORM_FANOUT)
+                        peer_fanout=STORM_FANOUT, max_batch_bytes=TILE)
     crash = {}
     crash_lock = threading.Lock()
     led = [0] * (STORM_WORKERS + 1)     # flights each worker's probe led
@@ -1373,7 +1416,7 @@ def phase_gc_roll(seed: int, kernels, ctx: dict, work: Path) -> dict:
 
     def service(root, **kw):
         return ImageService(store, ServiceConfig(
-            device="cuda", root=root,
+            device="cuda", root=root, max_batch_bytes=TILE,
             publish_name_index_path=str(work / "names.idx"), **kw),
             pins=gc.pins, refcounts=gc.refcounts)
 
@@ -1429,7 +1472,8 @@ def phase_gc_roll(seed: int, kernels, ctx: dict, work: Path) -> dict:
     check(dead == names_a - names_b, f"retire_image returned {len(dead)} "
           f"names, not the {len(names_a - names_b)} of A that B lacks")
     gate = GatedStore(store, GATE_AT_GET)
-    reader = ImageService(gate, ServiceConfig(device="cuda", root=r1),
+    reader = ImageService(gate, ServiceConfig(device="cuda", root=r1,
+                                                max_batch_bytes=TILE),
                           pins=gc.pins)
     res = {}
 
@@ -1570,6 +1614,218 @@ def phase_gc_roll(seed: int, kernels, ctx: dict, work: Path) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 7
+
+def _launch(kernels, argv: list) -> tuple:
+    """One in-process run of the port's serve launcher: (its result,
+    the kernel launches it made, its wall seconds)."""
+    from repro_torch.launch import serve
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = serve.main(argv)
+    import torch
+    torch.cuda.synchronize()
+    return res, dict(kernels.LAUNCHES), time.perf_counter() - t0
+
+
+def _serve_direct(model, requests: int, max_new: int) -> list:
+    """The launcher's requests through a ServeEngine over `model`."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(model, max_batch=4, max_len=64)
+    reqs = [Request(i, prompt=[1 + i, 2, 3], max_new=max_new)
+            for i in range(requests)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    return [r.out for r in reqs]
+
+
+def phase_launcher(seed: int, kernels, ctx: dict, work: Path) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import decode
+    from repro_torch.core.service import ImageService, ServiceConfig
+    from repro_torch.core.store import ChunkStore
+    from repro_torch.core.telemetry import COUNTERS
+    from repro_torch.launch import serve
+    from repro_torch.models import DecoderLM, RunFlags, init_flat
+    from repro_torch.models import blocks
+    from repro_torch.models.attention import flash_attn_plain
+
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = get_config("smollm-360m")
+    flat = ctx["flat"]
+
+    # 1. the full-width model through the launcher, tile left at "auto"
+    store_dir = work / "store"
+    pub = ImageService(ChunkStore(store_dir), ServiceConfig(
+        device="cuda", root="R1", max_batch_bytes=TILE))
+    t0 = time.perf_counter()
+    blob, st = pub.publish(flat, tenant="serve", tenant_key=serve.TENANT_KEY,
+                           image_id="smollm-360m-full")
+    pub.close()
+    log(f"launcher: published {cfg.name} at full width, {st.total_chunks} "
+        f"chunks of {KIB512} B, in {time.perf_counter() - t0:.2f} s")
+    argv = ["--arch", "smollm-360m", "--no-reduced", "--store",
+            str(store_dir), "--image", "smollm-360m-full", "--root", "R1",
+            "--eager-flush", "--l2-nodes", "0", "--requests", "8",
+            "--max-new", "8"]
+    log("launcher: python -m repro_torch.launch.serve " + " ".join(argv))
+    res, launches_a, wall = _launch(kernels, argv)
+    cs = res["cold_start"]
+    rates = decode.AUTOTUNE_RATES[("torch-fused", "cuda")]
+    sweep_launches = 2 * len(rates)        # a warmup and a timed pass each
+    check(res["served"] == 8, f"the launcher served {res['served']}/8")
+    check(launches_a["fused_verify_decrypt"] > sweep_launches,
+          f"the launcher's restore launched no fused kernel beyond the "
+          f"autotune sweep's {sweep_launches}: {launches_a}")
+    check("eager_flushes" in cs and cs["eager_flushes"] is not None,
+          "the cold start's stats carry no eager_flushes")
+    direct = DecoderLM(cfg, device="cuda").load_flat(flat)
+    want = _serve_direct(direct, 8, 8)
+    check(res["tokens"] == want, "the launcher's greedy tokens differ from "
+          f"the directly loaded model's: {res['tokens']} vs {want}")
+    new_tokens = sum(len(t) for t in res["tokens"])
+    out["launcher"] = {
+        "tile_bytes": res["tile_bytes"],
+        "autotune_GBps": {str(c): r / 1e9 for c, r in sorted(rates.items())},
+        "load_seconds": cs["load_seconds"],
+        "fetch_wall_s": cs["fetch_wall_s"],
+        "decode_wall_s": cs["decode_wall_s"],
+        "decode_tiles": cs["decode_tiles"],
+        "eager_flushes": cs["eager_flushes"],
+        "overlap_fraction": cs["overlap_fraction"],
+        "origin_fetches": cs["origin_fetches"],
+        "serve_tokens_per_s": new_tokens / res["serve_seconds"],
+        "wall_s": wall, "fused_launches": launches_a["fused_verify_decrypt"],
+        "sweep_fused_launches": sweep_launches}
+    log("launcher: autotuned tile", res["tile_bytes"], "B; timed GB/s per "
+        "candidate", json.dumps(out["launcher"]["autotune_GBps"]))
+    log("launcher: full width", json.dumps(out["launcher"]),
+        "; 8 requests' tokens equal the directly loaded model's")
+
+    # 2. every flag group at reduced width, publishing on the card
+    before = COUNTERS.get("retry.giveups")
+    argv = ["--arch", "smollm-360m", "--publish", "--l2-nodes", "6",
+            "--peer-workers", "2", "--retry-attempts", "3",
+            "--breaker-threshold", "0.5", "--origin-fault", "error_p=0.02"]
+    log("launcher: python -m repro_torch.launch.serve " + " ".join(argv))
+    res_b, launches_b, wall_b = _launch(kernels, argv)
+    giveups = COUNTERS.get("retry.giveups") - before
+    check(res_b["served"] == res_b["requests"] == 8,
+          f"the reduced launcher served {res_b['served']}/8")
+    for name in ("sha256_many", "aes_encrypt_many"):
+        check(launches_b[name] > 0, f"the --publish launcher launched no "
+              f"{name}")
+    check(giveups == 0, f"{giveups} origin retries gave up")
+    out["reduced_flags"] = {"wall_s": wall_b, "launches": launches_b,
+                            "retry_giveups": giveups}
+    log("launcher: reduced --publish with L2, peers, retries, breaker and "
+        "a flaky origin:", json.dumps(out["reduced_flags"]),
+        f"(GF(256) {launches_b['gf256']}, parity {launches_b['parity']} "
+        "launches)")
+
+    # 3a. prefill at SmolLM-360M's full width against prefill by decoding
+    B, S = PREFILL_PROMPTS, PREFILL_LEN
+    toks = torch.from_numpy(np.random.default_rng(seed + 7).integers(
+        0, cfg.vocab_size, (B, S)))
+    direct.prefill({"tokens": toks}, direct.init_decode_state(B, S))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = direct.prefill({"tokens": toks},
+                               direct.init_decode_state(B, S))
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    state = direct.init_decode_state(B, S)
+    t0 = time.perf_counter()
+    for t in range(S):
+        dec_logits, state = direct.decode_step(state, toks[:, t],
+                                               torch.full((B,), t))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    V = cfg.vocab_size
+    a, b = logits[:, :V].float(), dec_logits[:, :V].float()
+    diff = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    top2 = b.topk(2, dim=-1).values
+    out["prefill_smollm"] = {
+        "prompts": B, "tokens": S, "prefill_ms": prefill_ms,
+        "decode_path_s": decode_s, "max_abs_logit_diff": diff,
+        "max_abs_logit": scale,
+        "min_top2_gap": (top2[:, 0] - top2[:, 1]).min().item()}
+    check(torch.equal(a.argmax(-1), b.argmax(-1)),
+          "prefill's greedy tokens differ from prefill by decoding: "
+          f"{out['prefill_smollm']}")
+    check(diff <= PREFILL_BF16_TOL * scale, "prefill's last-position logits "
+          f"differ from prefill by decoding: {out['prefill_smollm']}")
+    log("prefill: smollm-360m, full width, bfloat16:",
+        json.dumps(out["prefill_smollm"]))
+    del direct, state, logits, dec_logits
+
+    # 3b. starcoder2-15b at full width, 2 of its 40 layers, a prompt
+    # past its 4096-token window; the card route of flash_attn held
+    # against the plain blocked version at every layer
+    full = get_config("starcoder2-15b")
+    cut = dataclasses.replace(full, num_layers=STARCODER_LAYERS)
+    log(f"prefill: {full.name} at full width (d_model {full.d_model}, "
+        f"{full.num_heads} heads / {full.num_kv_heads} KV, window "
+        f"{full.sliding_window}), depth cut to {cut.num_layers} of "
+        f"{full.num_layers} layers, float32, one prompt of "
+        f"{STARCODER_PROMPT} tokens")
+    t0 = time.perf_counter()
+    sc_flat = init_flat(cut, seed + 8)
+    sc = DecoderLM(cut, RunFlags(dtype="float32")).load_flat(sc_flat)
+    del sc_flat
+    weights_s = time.perf_counter() - t0
+    errs = []
+    card_flash = blocks.flash_attn
+
+    def checked(q, k, v, **kw):
+        o = card_flash(q, k, v, **kw)
+        ref = flash_attn_plain(q.float(), k.float(), v.float(), **kw)
+        errs.append((o.float() - ref).abs().max().item())
+        return o
+
+    sc_toks = torch.from_numpy(np.random.default_rng(seed + 9).integers(
+        0, cut.vocab_size, (1, STARCODER_PROMPT)))
+    blocks.flash_attn = checked
+    try:
+        sc.prefill({"tokens": sc_toks},
+                   sc.init_decode_state(1, STARCODER_PROMPT))
+    finally:
+        blocks.flash_attn = card_flash
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sc_logits, _ = sc.prefill({"tokens": sc_toks},
+                              sc.init_decode_state(1, STARCODER_PROMPT))
+    torch.cuda.synchronize()
+    sc_ms = (time.perf_counter() - t0) * 1e3
+    out["prefill_starcoder2"] = {
+        "layers": cut.num_layers, "of_layers": full.num_layers,
+        "tokens": STARCODER_PROMPT, "window": full.sliding_window,
+        "prefill_ms": sc_ms, "weights_s": weights_s,
+        "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "flash_max_abs_err_per_layer": errs}
+    check(len(errs) == cut.num_layers,
+          f"flash_attn ran {len(errs)} times for {cut.num_layers} layers")
+    check(max(errs) <= FLASH_F32_TOL, "the card route of flash_attn differs "
+          f"from its plain version: {errs}")
+    check(bool(torch.isfinite(sc_logits).all()),
+          "starcoder2 prefill logits are not finite")
+    log("prefill: starcoder2-15b:", json.dumps(out["prefill_starcoder2"]))
+    del sc, sc_logits
+    out["launches"] = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"launcher phase: {out['phase_s']:.2f} s")
+    return out
+
+
 def rng_prompt(seed: int, vocab: int) -> list:
     import numpy as np
     return [int(t) for t in
@@ -1601,7 +1857,8 @@ def main() -> int:
     t_all = time.perf_counter()
     tmp = ROOT / "build" / f"smoke-store-{args.seed}"
     work = ROOT / "build" / f"smoke-gc-{args.seed}"
-    for d in (tmp, work):
+    work7 = ROOT / "build" / f"smoke-launch-{args.seed}"
+    for d in (tmp, work, work7):
         shutil.rmtree(d, ignore_errors=True)
     try:
         smi_line = phase_toolchain(kernels)
@@ -1621,8 +1878,11 @@ def main() -> int:
             main_path["launches"]["fused_verify_decrypt"] // 2)
         shutil.rmtree(tmp, ignore_errors=True)  # phase 6 has its own store
         gc_roll = phase_gc_roll(args.seed, kernels, ctx, work)
+        shutil.rmtree(work, ignore_errors=True)
+        launcher = phase_launcher(args.seed, kernels, ctx, work7)
         launches = {3: main_path["launches"], 4: l2_path["launches"],
-                    5: storm["launches"], 6: gc_roll["launches"]}
+                    5: storm["launches"], 6: gc_roll["launches"],
+                    7: launcher["launches"]}
         for phase, names in PATH_KERNELS.items():
             for name in names:
                 check(launches[phase][name] > 0, f"kernel {name} was not "
@@ -1631,7 +1891,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        for d in (tmp, work):
+        for d in (tmp, work, work7):
             shutil.rmtree(d, ignore_errors=True)
     table = []
     for name, (src, replaces, phase) in TPU_KERNELS.items():
@@ -1659,6 +1919,8 @@ def main() -> int:
                              if k != "launches"}
     summary["gc_roll"] = {k: v for k, v in gc_roll.items()
                           if k != "launches"}
+    summary["launcher"] = {k: v for k, v in launcher.items()
+                           if k != "launches"}
     summary["smoke_seconds"] = time.perf_counter() - t_all
     log("main path:", json.dumps(summary))
     log(json.dumps({"launches": {f"phase{p}": n

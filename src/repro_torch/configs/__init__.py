@@ -8,6 +8,8 @@ from repro_torch.configs.base import ModelConfig  # noqa: F401
 _ARCH_MODULES = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
 }
 
 

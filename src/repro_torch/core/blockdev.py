@@ -744,6 +744,8 @@ class TieredReader:
             "queue_hwm": q.high_water,
             "queue_depth": q.maxsize,
             "decode_tiles": dstats["tiles"],
+            "eager_flushes": dstats.get("eager_flushes", 0),
+            "eager_holds": dstats.get("eager_holds", 0),
         })
         return out
 

@@ -19,7 +19,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 from repro_torch.core.telemetry import COUNTERS
 
-QUEUE_DONE = object()           # end-of-stream sentinel (``get``)
+QUEUE_DONE = object()           # end-of-stream sentinel (``get``/``try_get``)
+QUEUE_EMPTY = object()          # ``try_get``: nothing queued right now
 
 
 class BoundedQueue:
@@ -92,6 +93,22 @@ class BoundedQueue:
                 item = self._dq.popleft()
                 self._not_full.notify()
                 return item
+            if self._error is not None:
+                raise self._error
+            return QUEUE_DONE
+
+    def try_get(self):
+        """Non-blocking ``get``: an item, ``QUEUE_EMPTY`` when nothing is
+        queued yet (the producer is still running), or ``QUEUE_DONE``
+        once closed and drained. The idle-queue eager flush reads
+        ``QUEUE_EMPTY`` as 'the consumer would block now'."""
+        with self._mu:
+            if self._dq:
+                item = self._dq.popleft()
+                self._not_full.notify()
+                return item
+            if not self._closed:
+                return QUEUE_EMPTY
             if self._error is not None:
                 raise self._error
             return QUEUE_DONE

@@ -22,29 +22,54 @@ pass, together with the tile size and threading they want:
 The kernel hooks run on the decoder's ``device``: on ``"cuda"`` they
 launch the kernels, on ``"cpu"`` the kernels' plain PyTorch versions.
 
-Tile sizing. SHA-256 is serial within a chunk, so a kernel launch costs
-at least one chunk's hash and parallelism comes only from chunks per
-launch. The kernel backends therefore register 128 MiB tiles (256
-chunks of 512 KiB); the host backends keep the JAX package's 256 KiB.
-``max_batch_bytes="auto"`` takes the backend's registered tile (the
-JAX package's timed sweep over 64 KiB..1 MiB tiles is not carried over:
-every candidate there is far too small for the kernels); an explicit
-integer always wins.
+Streaming (``decrypt_stream``) keeps the JAX package's contract: the
+stream is drained even after a bad tile and one ``IntegrityError``
+names every bad chunk; no plaintext of a bad chunk is returned; a
+fetch-side failure (queue poisoned) is re-raised only after every
+dispatched tile finished. With ``eager_flush`` the consumer also
+dispatches its partial tile whenever it would block on an empty
+hand-off queue, once the partial holds ``eager_min_bytes`` and no tile
+is in flight (``stats["eager_flushes"]``/``["eager_holds"]``).
+
+Tile sizing. ``max_batch_bytes="auto"`` (the ``ServiceConfig`` default)
+asks ``autotune_tile_bytes`` for the backend's best tile: a timed sweep
+at first use, cached per backend and device per process, one untimed
+warmup per candidate, a budget that counts only timed runs;
+``REPRO_NO_AUTOTUNE=1`` disables it and an explicit integer always
+wins. The candidates are each backend's own. SHA-256 is serial within a
+chunk, so a kernel launch costs at least one chunk's hash chain however
+many chunks it holds, and its parallelism comes only from chunks per
+launch: the kernel backends register 128 MiB tiles (256 chunks of
+512 KiB) and sweep 8-256 MiB at the service's 512 KiB chunk. The host
+work of a tile (packing, copies both ways, slicing the plaintexts)
+does not fall with it: on an H100 the smallest of 32-256 MiB ran
+fastest, so the sweep reaches down to 8 MiB, where the one chain a
+launch costs sets the rate. The ``python`` backend keeps the JAX package's 64 KiB-1 MiB
+candidates at 4 KiB chunks. On the CPU the kernel backends run their
+plain versions, which are oracles and not worth tuning: there ``auto``
+takes the registered tile.
 """
 from __future__ import annotations
 
 import functools
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 
-from repro_torch.core.concurrency import QUEUE_DONE, LazyPool
+from repro_torch.core.concurrency import QUEUE_DONE, QUEUE_EMPTY, LazyPool
 from repro_torch.core.crypto import convergent
+from repro_torch.core.layout import CHUNK_SIZE
 from repro_torch.core.telemetry import COUNTERS
 
 DEFAULT_MAX_BATCH_BYTES = 256 << 10
 KERNEL_TILE_BYTES = 128 << 20
 DEFAULT_THREADS = max(1, min(4, os.cpu_count() or 1))
+DEFAULT_EAGER_MIN_BYTES = 32 << 10
+# autotune candidates (module doc, "Tile sizing")
+_TILE_CANDIDATES = (64 << 10, 128 << 10, 256 << 10, 512 << 10, 1 << 20)
+KERNEL_TILE_CANDIDATES = (8 << 20, 16 << 20, 32 << 20, 64 << 20, 128 << 20,
+                          256 << 20)
 
 
 # ------------------------------------------------------------- registry
@@ -55,13 +80,19 @@ class DecodeBackend:
     returns ``(encrypt_many, sha_many, fused)`` with the hooks bound to
     `device`; ``None`` selects the numpy T-table core / hashlib / the
     two-pass route. ``threads=1`` means the kernel owns its
-    parallelism."""
+    parallelism. ``tile_candidates``, ``tune_chunk_bytes`` and
+    ``tune_budget_s`` shape its autotune sweep; ``tunes_on_cpu=False``
+    keeps the registered tile on the CPU (module doc)."""
 
     name: str
     description: str
     tile_bytes: int = DEFAULT_MAX_BATCH_BYTES
     threads: int | None = None
     loader: object = None
+    tile_candidates: tuple = _TILE_CANDIDATES
+    tune_chunk_bytes: int = 4096
+    tune_budget_s: float = 0.25
+    tunes_on_cpu: bool = True
     _hooks: dict = field(default_factory=dict, init=False, repr=False)
 
     def hooks(self, device="cuda") -> tuple:
@@ -123,14 +154,144 @@ def _load_torch_fused(device):
 register_backend(DecodeBackend(
     "python", "batched numpy T-table AES + hashlib verify (host "
     "oracle)"), aliases=("numpy",))
+# the kernel backends' sweep: its timed passes take about a second in
+# all with their host copies, so the budget admits every candidate
+_KERNEL_TUNING = dict(tile_bytes=KERNEL_TILE_BYTES, threads=1,
+                      tile_candidates=KERNEL_TILE_CANDIDATES,
+                      tune_chunk_bytes=CHUNK_SIZE, tune_budget_s=2.0,
+                      tunes_on_cpu=False)
 register_backend(DecodeBackend(
     "torch", "two passes: the SHA-256 kernel, then the AES-CTR kernel",
-    tile_bytes=KERNEL_TILE_BYTES, threads=1, loader=_load_torch))
+    loader=_load_torch, **_KERNEL_TUNING))
 register_backend(DecodeBackend(
     "torch-fused", "ONE fused verify+decrypt kernel on the read path; "
     "the SHA-256 and AES kernels on the write path",
-    tile_bytes=KERNEL_TILE_BYTES, threads=1, loader=_load_torch_fused),
-    aliases=("fused",))
+    loader=_load_torch_fused, **_KERNEL_TUNING), aliases=("fused",))
+
+
+# ------------------------------------------------------------- autotune
+
+_AUTOTUNE_CACHE: dict[tuple, int] = {}
+_AUTOTUNE_LOCK = threading.Lock()
+# (backend, device kind) -> Event while its sweep runs: the lock guards
+# only the cache and pending dicts, never a measurement, so one
+# backend's first sweep does not hold up any other backend's first
+# decode (only callers of the same backend wait, on the event)
+_AUTOTUNE_PENDING: dict[tuple, threading.Event] = {}
+# (backend, device kind) -> {candidate bytes: timed bytes/s} of the
+# last sweep
+AUTOTUNE_RATES: dict[tuple, dict] = {}
+
+
+def _autotune_sweep(backend, *, device, budget_s: float,
+                    chunk_bytes: int) -> tuple:
+    """The timed candidate sweep (no lock held): ``(best tile,
+    {candidate: bytes/s})``. Each candidate gets ONE untimed warmup call
+    first (kernel builds, first-touch allocations), and only the timed
+    run counts toward the rate and ``budget_s``, checked before each
+    candidate's warmup."""
+    import numpy as np
+
+    from repro_torch.core.crypto import aes
+
+    enc, sha, fused = backend.hooks(device)
+    rng = np.random.default_rng(0xA070)
+    candidates = [backend.tile_bytes] + [
+        c for c in backend.tile_candidates if c != backend.tile_bytes]
+    most = max(1, max(candidates) // chunk_bytes)
+    pool = rng.bytes(most * chunk_bytes)
+    keys_all = [rng.bytes(32) for _ in range(most)]
+
+    def one_pass(cts, keys):
+        if fused is not None:
+            fused(cts, keys)
+            return
+        if sha is not None:
+            sha(cts)
+        else:
+            import hashlib
+            for ct in cts:
+                hashlib.sha256(ct).digest()
+        aes.ctr_keystream_many(keys, [len(ct) for ct in cts],
+                               encrypt_many=enc)
+
+    best, best_rate, spent, rates = backend.tile_bytes, 0.0, 0.0, {}
+    for cand in candidates:
+        if spent > budget_s:    # checked BEFORE the warmup: an exhausted
+            break               # budget starts no further candidate
+        nchunks = max(1, cand // chunk_bytes)
+        cts = [pool[i * chunk_bytes:(i + 1) * chunk_bytes]
+               for i in range(nchunks)]
+        keys = keys_all[:nchunks]
+        one_pass(cts, keys)     # warmup, untimed
+        t0 = time.perf_counter()
+        one_pass(cts, keys)
+        dt = time.perf_counter() - t0
+        rates[cand] = rate = nchunks * chunk_bytes / max(dt, 1e-9)
+        if rate > best_rate:
+            best_rate, best = rate, cand
+        spent += dt
+    return best, rates
+
+
+def autotune_tile_bytes(backend_name: str, *, device="cuda",
+                        budget_s: float | None = None,
+                        chunk_bytes: int | None = None,
+                        force: bool = False) -> int:
+    """Best ``max_batch_bytes`` for `backend_name` on `device` in THIS
+    process: a timed sweep over the backend's tile candidates at first
+    use, cached per (backend, device kind). Each candidate decodes one
+    synthetic tile of ``chunk_bytes`` chunks (default: the backend's
+    ``tune_chunk_bytes``) through the backend's real combined pass (the
+    fused hook when present, else verify + keystream); the highest
+    bytes/s wins. Candidates start from the registered tile, and once
+    ``budget_s`` (default: the backend's ``tune_budget_s``) of timed
+    runs has elapsed no further candidate starts.
+
+    The sweep runs outside ``_AUTOTUNE_LOCK``: concurrent callers of the
+    same backend wait on its pending event, other backends sweep or
+    read their cached tile meanwhile. ``REPRO_NO_AUTOTUNE=1`` (env)
+    disables the sweep, as does the CPU for a backend with
+    ``tunes_on_cpu=False``; both return the registered tile.
+    ``force=True`` re-measures."""
+    resolved = resolve_backend_name(backend_name)
+    if resolved == "serial":
+        return DEFAULT_MAX_BATCH_BYTES
+    backend = _REGISTRY[resolved]
+    kind = str(device).split(":", 1)[0]         # "cuda:0" -> "cuda"
+    if os.environ.get("REPRO_NO_AUTOTUNE") or \
+            (kind == "cpu" and not backend.tunes_on_cpu):
+        return backend.tile_bytes
+    key = (resolved, kind)
+    while True:
+        with _AUTOTUNE_LOCK:
+            if not force and key in _AUTOTUNE_CACHE:
+                return _AUTOTUNE_CACHE[key]
+            pending = _AUTOTUNE_PENDING.get(key)
+            if pending is None:
+                pending = _AUTOTUNE_PENDING[key] = threading.Event()
+                break               # this caller runs the sweep
+        pending.wait()              # a same-backend sweep is in flight
+        with _AUTOTUNE_LOCK:
+            done = _AUTOTUNE_CACHE.get(key)
+        if done is not None and not force:
+            return done
+        # that sweep failed (or force=True): claim it ourselves
+    try:
+        best, rates = _autotune_sweep(
+            backend, device=device,
+            budget_s=backend.tune_budget_s if budget_s is None
+            else budget_s,
+            chunk_bytes=chunk_bytes or backend.tune_chunk_bytes)
+        with _AUTOTUNE_LOCK:
+            _AUTOTUNE_CACHE[key] = best
+            AUTOTUNE_RATES[key] = rates
+        COUNTERS.inc("decode.autotuned_backends")
+        return best
+    finally:
+        with _AUTOTUNE_LOCK:
+            _AUTOTUNE_PENDING.pop(key, None)
+        pending.set()
 
 
 class BatchDecoder:
@@ -138,21 +299,31 @@ class BatchDecoder:
     and encrypts chunk batches for publish, on `device`."""
 
     def __init__(self, backend: str = "torch-fused",
-                 max_batch_bytes: int | str | None = None, device="cuda"):
+                 max_batch_bytes: int | str | None = None,
+                 threads: int | None = None, eager_flush: bool = False,
+                 eager_min_bytes: int | None = None, device="cuda"):
         resolved = resolve_backend_name(backend)     # raises on unknowns
         self.backend = resolved if backend == "auto" else backend
         self.backend_obj = _REGISTRY.get(resolved)   # None for "serial"
         self.device = device
-        if max_batch_bytes in (None, "auto"):
+        self.eager_flush = bool(eager_flush)
+        self.eager_min_bytes = DEFAULT_EAGER_MIN_BYTES \
+            if eager_min_bytes is None else max(0, int(eager_min_bytes))
+        if max_batch_bytes == "auto":
+            # measured per backend per process; explicit ints always win
+            max_batch_bytes = autotune_tile_bytes(resolved, device=device) \
+                if self.backend_obj else DEFAULT_MAX_BATCH_BYTES
+        elif max_batch_bytes is None:                # backend default
             max_batch_bytes = self.backend_obj.tile_bytes \
                 if self.backend_obj else DEFAULT_MAX_BATCH_BYTES
         self.max_batch_bytes = max(1, int(max_batch_bytes))
-        self.threads = DEFAULT_THREADS
+        self.threads = DEFAULT_THREADS if threads is None else max(1, threads)
         self._encrypt_many = self._sha_many = self._fused = None
         if self.backend_obj is not None:
             (self._encrypt_many, self._sha_many,
              self._fused) = self.backend_obj.hooks(device)
-            self.threads = self.backend_obj.threads or DEFAULT_THREADS
+            if self.backend_obj.threads is not None:
+                self.threads = self.backend_obj.threads  # kernel's own
         self._pool = LazyPool()
         self.last_wall_s = 0.0
 
@@ -198,11 +369,16 @@ class BatchDecoder:
         decoding each while the fetch producer is still running.
 
         Returns ``({name: plaintext}, stats)`` with ``busy_s`` (summed
-        decode time), ``wall_s`` and ``tiles``. The stream is drained
-        even after a bad tile; one ``IntegrityError`` then names every
-        bad chunk, and no bad chunk's plaintext is returned. A poisoned
-        queue re-raises the producer's error after every dispatched
-        tile finished."""
+        decode time), ``wall_s``, ``tiles``, ``eager_flushes`` and
+        ``eager_holds``. The stream is drained even after a bad tile;
+        one ``IntegrityError`` then names every bad chunk, and no bad
+        chunk's plaintext is returned. A poisoned queue re-raises the
+        producer's error after every dispatched tile finished.
+
+        With ``eager_flush`` the partial tile is dispatched whenever the
+        queue is momentarily empty (``try_get`` returns
+        ``QUEUE_EMPTY``), it holds at least ``eager_min_bytes`` and no
+        dispatched tile is still running."""
         t0 = time.perf_counter()
         out: dict[str, bytes] = {}
         bad_names: list[str] = []
@@ -214,6 +390,8 @@ class BatchDecoder:
         cts: dict[str, bytes] = {}
         size = 0
         busy_inline = 0.0
+        eager = self.eager_flush and self.backend != "serial"
+        eager_flushes = eager_holds = 0
 
         def flush():
             nonlocal part, cts, size
@@ -228,7 +406,23 @@ class BatchDecoder:
         stream_err = None
         try:
             while True:
-                item = queue.get()
+                if eager and part:
+                    item = queue.try_get()
+                    if item is QUEUE_EMPTY:
+                        # the consumer would block here: flush the
+                        # partial tile only if it is no sliver and the
+                        # decode capacity is idle (with tiles in flight
+                        # an early flush only shreds tiles)
+                        if size < self.eager_min_bytes:
+                            eager_holds += 1
+                            COUNTERS.inc("decode.eager_holds")
+                        elif pool is None or all(f.done() for f in futures):
+                            flush()
+                            eager_flushes += 1
+                            COUNTERS.inc("decode.eager_flushes")
+                        item = queue.get()
+                else:
+                    item = queue.get()
                 if item is QUEUE_DONE:
                     break
                 name, ct = item
@@ -273,7 +467,8 @@ class BatchDecoder:
                 sorted(bad_names))
         COUNTERS.add("decode.batched_chunks", len(out))
         return out, {"busy_s": busy, "wall_s": time.perf_counter() - t0,
-                     "tiles": len(results)}
+                     "tiles": len(results), "eager_flushes": eager_flushes,
+                     "eager_holds": eager_holds}
 
     # --------------------------------------------------- forward direction
     def derive_keys_batch(self, plaintexts: list, salt: bytes) -> list:

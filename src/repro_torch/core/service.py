@@ -1,12 +1,15 @@
 """ImageService: the process-wide read-path agent (the port of
-``repro.core.service``; session TTLs and the decode-stage policy knobs
-are a later slice).
+``repro.core.service``).
 
 * ``ServiceConfig`` — the knobs the port uses, with the JAX package's
   names and defaults, except that ``decode_backend`` defaults to
   ``"torch-fused"`` and there is a ``device`` (default ``"cuda"``;
   constructing a config for CUDA on a machine without it raises). The
-  peer, retry and breaker knobs are all off by default.
+  peer, retry and breaker knobs are all off by default. The decode
+  pool: ``decode_backend``, ``max_batch_bytes`` (``"auto"`` autotunes
+  per backend, ``core.decode.autotune_tile_bytes``), ``decode_threads``
+  and ``eager_min_bytes``; ``session_cap`` and ``session_ttl_s`` bound
+  the session and parsed-manifest caches.
 * ``ImageService`` — shared store, L1, L2, admission and fetch limiters,
   decoder pools, single-flight table, and one ``RetryPolicy`` and one
   ``CircuitBreaker`` shared by its readers and its publisher; ``open``
@@ -30,6 +33,7 @@ import contextlib
 import hashlib
 import itertools
 import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 
@@ -47,6 +51,7 @@ from repro_torch.core.cache.local import LocalCache
 from repro_torch.core.cache.peer import PeerMesh
 from repro_torch.core.concurrency import BlockingLimiter, RejectingLimiter
 from repro_torch.core.decode import (
+    DEFAULT_EAGER_MIN_BYTES,
     BatchDecoder,
     known_backend_names,
     resolve_backend_name,
@@ -84,16 +89,24 @@ class ReadPolicy:
     """How ONE read runs. ``mode``: ``"streamed"`` (default; decode
     overlaps fetch), ``"staged"`` (fetch, then decode) or ``"serial"``
     (per-chunk oracle). ``parallelism`` is the origin fetch width;
-    ``decode_backend`` overrides the service's backend (``None``
-    inherits); ``queue_depth`` bounds the streamed hand-off queue.
-    ``l2_hedge``: hedged stripe GETs in the L2 for this read (``None``
-    inherits the cache's ``hedge_quantile``; forwarded only when the L2
-    supports hedging)."""
+    ``max_batch_bytes`` and ``decode_backend`` override the service's
+    decode tile and backend (``None`` inherits; an explicit tile wins
+    over the autotuner); ``queue_depth`` bounds the streamed hand-off
+    queue. ``eager_flush``: decode the partial tile whenever the
+    streamed consumer would block on the hand-off queue;
+    ``eager_min_bytes``: the least partial tile such a flush may
+    dispatch. ``l2_hedge``: hedged stripe GETs in the L2 for this read
+    (forwarded only when the L2 supports hedging). The last three are
+    tri-state: ``None`` inherits the service's (or the cache's)
+    default, ``True``/``False`` or a number override it."""
 
     mode: str = "streamed"
     parallelism: int = DEFAULT_PARALLELISM
+    max_batch_bytes: int | None = None
     decode_backend: str | None = None
     queue_depth: int = DEFAULT_QUEUE_DEPTH
+    eager_flush: bool | None = None
+    eager_min_bytes: int | None = None
     l2_hedge: bool | None = None
 
     def __post_init__(self):
@@ -138,8 +151,14 @@ class ServiceConfig:
     max_coldstarts: int = 4             # admission control (§4.2)
     fetch_concurrency: int = 16         # 0 = unbounded origin reads
     decode_backend: str = "torch-fused"  # publish too, unless publish_backend
-    max_batch_bytes: int | str = "auto"  # "auto" = the backend's tile
+    decode_threads: int | None = None   # None = the decoder's default
+    # "auto" = per-backend autotuned tile (decode.autotune_tile_bytes: a
+    # timed sweep at first use, cached per process); any explicit int,
+    # here or per read in ReadPolicy.max_batch_bytes, wins
+    max_batch_bytes: int | str = "auto"
+    eager_min_bytes: int = DEFAULT_EAGER_MIN_BYTES
     session_cap: int = 64               # LRU session bound (0 = unbounded)
+    session_ttl_s: float | None = None  # None = no idle expiry
     manifest_cap: int = 128             # LRU manifest bound (0 = unbounded)
     origin_delay_s: float = 0.0         # simulated origin RTT per GET
     root: str | None = None             # default root for open()/publish()
@@ -271,16 +290,27 @@ class ImageService:
             salt_count=cfg.l2_salt_count, **kw)
 
     def decoder_for(self, policy: ReadPolicy) -> BatchDecoder:
-        """The shared ``BatchDecoder`` of `policy`'s backend (one per
-        backend)."""
-        backend = policy.decode_backend or self.config.decode_backend
-        key = resolve_backend_name(backend)
+        """The shared ``BatchDecoder`` of `policy`'s decode knobs: one
+        per (backend, tile, eager, eager_min_bytes), keyed by the
+        canonical backend name so aliases share a pool."""
+        cfg = self.config
+        eager = policy.eager_flush if policy.eager_flush is not None \
+            else bool(cfg.default_policy.eager_flush)
+        backend = policy.decode_backend or cfg.decode_backend
+        key = (resolve_backend_name(backend),
+               policy.max_batch_bytes or cfg.max_batch_bytes,
+               eager,
+               policy.eager_min_bytes if policy.eager_min_bytes is not None
+               else cfg.eager_min_bytes)
         with self._lock:
             dec = self._decoders.get(key)
             if dec is None:
-                dec = BatchDecoder(backend,
-                                   max_batch_bytes=self.config.max_batch_bytes,
+                dec = BatchDecoder(backend, max_batch_bytes=key[1],
+                                   threads=cfg.decode_threads,
+                                   eager_flush=key[2],
+                                   eager_min_bytes=key[3],
                                    device=self.device)
+                # a closed service hands out uncached decoders
                 if not self._closed:
                     self._decoders[key] = dec
             return dec
@@ -295,21 +325,41 @@ class ImageService:
                     f"tenant.{tenant}")
             return sc
 
-    def _cached(self, cache: OrderedDict, key, cap: int, build):
-        """LRU get-or-build (caller does NOT hold the lock)."""
+    def _cached(self, cache: OrderedDict, key, cap: int, counter: str,
+                build):
+        """LRU+TTL get-or-build (caller does NOT hold the lock). An
+        entry idle past ``session_ttl_s`` expires on lookup, and every
+        insert sweeps the idle entries and then the least recently used
+        beyond `cap`; each expiry or eviction ticks `counter`. A closed
+        service caches nothing."""
+        ttl = self.config.session_ttl_s
         with self._lock:
-            if key in cache:
-                cache.move_to_end(key)
-                return cache[key]
+            entry = cache.get(key)
+            if entry is not None:
+                now = time.monotonic()
+                if ttl is not None and now - entry[1] > ttl:
+                    del cache[key]
+                    self.counters.inc(counter)
+                else:
+                    entry[1] = now
+                    cache.move_to_end(key)
+                    return entry[0]
         value = build()
         with self._lock:
             if self._closed:
                 return value
-            value = cache.setdefault(key, value)
+            now = time.monotonic()
+            entry = cache.setdefault(key, [value, now])
+            entry[1] = now
             cache.move_to_end(key)
+            if ttl is not None:
+                for k in [k for k, v in cache.items() if now - v[1] > ttl]:
+                    del cache[k]
+                    self.counters.inc(counter)
             while cap > 0 and len(cache) > cap:
                 cache.popitem(last=False)
-            return value
+                self.counters.inc(counter)
+            return entry[0]
 
     def close(self):
         """Drop cached sessions and manifests, drain decoder pools and
@@ -376,7 +426,8 @@ class ImageService:
 
         manifest, layout = self._cached(
             self._manifests, (hashlib.sha256(manifest_blob).digest(),
-                              tenant_key), self.config.manifest_cap, parse)
+                              tenant_key), self.config.manifest_cap,
+            "service.manifest_evictions", parse)
         root = root or self.config.root or manifest.root_id
         tenant = tenant if tenant is not None else manifest.tenant
 
@@ -397,7 +448,7 @@ class ImageService:
             return ImageHandle(self, manifest, layout, reader, tenant, scope)
         reader, scope = self._cached(
             self._sessions, (manifest.image_id, root, tenant),
-            self.config.session_cap, session)
+            self.config.session_cap, "service.session_evictions", session)
         return ImageHandle(self, manifest, layout, reader, tenant, scope)
 
     # ------------------------------------------------------------- publish
@@ -458,10 +509,14 @@ class ImageHandle:
         self.counters = scope
 
     def _resolve(self, policy: ReadPolicy | None) -> tuple:
-        """(policy, decoder) with the service defaults applied."""
+        """(policy, decoder) with the service defaults applied. A policy
+        with no decode override keeps the handle's bound decoder (the
+        caller's, when the session was opened with ``decoder=``); an
+        explicit ``eager_flush=True/False`` is an override."""
         p = policy if policy is not None \
             else self.service.config.default_policy
-        if p.decode_backend is None:
+        if p.decode_backend is None and p.max_batch_bytes is None \
+                and p.eager_flush is None and p.eager_min_bytes is None:
             return p, self.reader.decoder
         return p, self.service.decoder_for(p)
 

@@ -1,13 +1,125 @@
-"""GQA decode attention against a KV cache (the port of the decode half
-of ``repro.models.attention``; flash attention for prefill is a later
-slice — the engine prefills by decoding)."""
+"""GQA attention (the port of ``repro.models.attention``): full-sequence
+``flash_attn`` for prefill and one-token ``decode_attn`` against a KV
+cache.
+
+``flash_attn`` has two routes with one contract. On a CUDA tensor it is
+one ``torch.nn.functional.scaled_dot_product_attention`` call (the JAX
+package computes this function in jnp, outside any Pallas kernel, so no
+hand-written kernel is owed); on a CPU tensor it is
+``flash_attn_plain``, the JAX package's blocked online softmax step by
+step, which the tests hold against the JAX function and
+``chip_smoke.py`` holds the card route against."""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
+
+
+def _blocks(n: int, pref: int) -> int:
+    """The largest block size <= `pref` that divides `n`."""
+    b = min(pref, n)
+    while n % b:
+        b -= 1
+    return b
+
+
+def attn_mask(sq: int, skv: int, *, causal: bool, q_offset: int,
+              window: int, device) -> torch.Tensor | None:
+    """(Sq, Skv) boolean mask, True where a query may attend: causal
+    (query position ``q_offset + i`` sees keys at or before it) and a
+    sliding window of `window` positions; None when nothing is masked."""
+    if not causal and not window:
+        return None
+    qpos = q_offset + torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
+def flash_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = True, q_offset: int = 0, window: int = 0,
+                     q_block: int = 512, kv_block: int = 1024) -> torch.Tensor:
+    """The blocked streaming softmax of the JAX ``flash_attn``: for each
+    block of queries, a running max, sum and output over blocks of keys,
+    all in float32; blocks are the largest divisors of Sq and Skv under
+    `q_block` and `kv_block`. q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv,
+    hd), Hq % Hkv == 0. Returns (B, Sq, Hq, hd) in q.dtype."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    qb, kb = _blocks(Sq, q_block), _blocks(Skv, kv_block)
+    # (B, Hkv, G, Sq, hd) and (B, Hkv, Skv, hd), float32
+    qs = q.float().reshape(B, Sq, Hkv, G, hd).permute(0, 2, 3, 1, 4)
+    ks = k.float().permute(0, 2, 1, 3)
+    vs = v.float().permute(0, 2, 1, 3)
+    mask = attn_mask(Sq, Skv, causal=causal, q_offset=q_offset,
+                     window=window, device=q.device)
+    outs = []
+    for i in range(0, Sq, qb):
+        qblk = qs[:, :, :, i:i + qb]
+        m = torch.full((B, Hkv, G, qb), NEG_INF, device=q.device)
+        l = torch.zeros((B, Hkv, G, qb), device=q.device)
+        o = torch.zeros((B, Hkv, G, qb, hd), device=q.device)
+        for j in range(0, Skv, kb):
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qblk,
+                             ks[:, :, j:j + kb]) * scale
+            if mask is not None:
+                s = torch.where(mask[i:i + qb, j:j + kb], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            o = o * alpha[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p, vs[:, :, j:j + kb])
+            m = m_new
+        outs.append(o / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.cat(outs, dim=3)                    # (B, Hkv, G, Sq, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
+def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool = True, q_offset: int = 0, window: int = 0,
+               q_block: int = 512, kv_block: int = 1024) -> torch.Tensor:
+    """GQA attention over a whole sequence, the JAX ``flash_attn``'s
+    signature and result (module doc). On the card one
+    ``scaled_dot_product_attention`` (``is_causal`` when the mask is
+    plain causal, else an explicit causal+window mask; the blocks do not
+    apply); on the CPU ``flash_attn_plain``."""
+    if q.device.type == "cpu":
+        return flash_attn_plain(q, k, v, causal=causal, q_offset=q_offset,
+                                window=window, q_block=q_block,
+                                kv_block=kv_block)
+    return flash_attn_sdpa(q, k, v, causal=causal, q_offset=q_offset,
+                           window=window)
+
+
+def flash_attn_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0,
+                    window: int = 0) -> torch.Tensor:
+    """``flash_attn``'s card route, on any device: one
+    ``scaled_dot_product_attention`` (GQA by ``enable_gqa``) on float32
+    copies of q, k, v, since the JAX function scores, weighs and sums
+    in float32 whatever the input dtype."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    plain_causal = causal and not window and q_offset == 0 and Sq == Skv
+    mask = None if plain_causal else attn_mask(
+        Sq, Skv, causal=causal, q_offset=q_offset, window=window,
+        device=q.device)
+    o = F.scaled_dot_product_attention(
+        q.float().transpose(1, 2), k.float().transpose(1, 2),
+        v.float().transpose(1, 2),
+        attn_mask=mask, is_causal=plain_causal,
+        enable_gqa=q.shape[2] != k.shape[2])
+    return o.transpose(1, 2).to(q.dtype)
 
 
 def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,

@@ -21,7 +21,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import sublayer_decode
+from repro_torch.models.blocks import sublayer_decode, sublayer_prefill
 from repro_torch.models.common import apply_norm, embed_lookup, pad_vocab
 from repro_torch.train.checkpoint import LeafSpec, tree_from_flat
 
@@ -147,14 +147,42 @@ class DecoderLM(nn.Module):
             "k": torch.zeros(shape, dtype=dtype, device=self.device),
             "v": torch.zeros(shape, dtype=dtype, device=self.device)}}}
 
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        cfg, p = self.cfg, self.params
+        x = apply_norm(p["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+        table = p["embed"] if cfg.tie_embeddings else p["unembed"]
+        return x @ table.to(self.dtype).T
+
+    def _check_loaded(self):
+        if self.params is None:
+            raise RuntimeError("DecoderLM has no weights: call load_flat")
+
+    @torch.no_grad()
+    def prefill(self, batch: dict, state: dict) -> tuple:
+        """Full-sequence forward over ``batch["tokens"]`` (B, S) at
+        positions 0..S-1 that fills the decode state: returns
+        (last-position logits (B, padded vocab) in the working dtype,
+        state), the KV caches holding rows [0, S) (updated in place).
+        ``decode_step`` continues at position S."""
+        self._check_loaded()
+        cfg, dtype = self.cfg, self.dtype
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device)
+        x = embed_lookup(self.params["embed"], tokens, dtype)   # (B, S, D)
+        positions = torch.arange(tokens.shape[1], device=self.device)
+        cache = state["g0"]["s0"]
+        for layer, pl in enumerate(self._layers):
+            x = sublayer_prefill(pl, x, cfg, dtype,
+                                 {"k": cache["k"][layer],
+                                  "v": cache["v"][layer]}, positions)
+        return self._logits(x[:, -1]), state
+
     @torch.no_grad()
     def decode_step(self, state: dict, tokens: torch.Tensor,
                     pos: torch.Tensor) -> tuple:
         """tokens: (B,) ids; pos: (B,) positions being written. Returns
         (logits (B, padded vocab) in the working dtype, state); the KV
         caches in `state` are updated in place."""
-        if self.params is None:
-            raise RuntimeError("DecoderLM has no weights: call load_flat")
+        self._check_loaded()
         cfg, dtype, p = self.cfg, self.dtype, self.params
         tokens = tokens.to(self.device)
         pos = pos.to(self.device)
@@ -164,6 +192,4 @@ class DecoderLM(nn.Module):
             x = sublayer_decode(pl, x, cfg, dtype,
                                 {"k": cache["k"][layer],
                                  "v": cache["v"][layer]}, pos)
-        x = apply_norm(p["final_norm"], x, cfg.norm_type, cfg.norm_eps)
-        table = p["embed"] if cfg.tie_embeddings else p["unembed"]
-        return x @ table.to(dtype).T, state
+        return self._logits(x), state

@@ -8,11 +8,12 @@ import torch.nn.functional as F
 def mlp_apply(p: dict, x: torch.Tensor, kind: str,
               dtype: torch.dtype) -> torch.Tensor:
     """SwiGLU (``w_gate``, ``w_up``, ``w_down``) or GeLU (``w_up``,
-    ``w_down``); weights (in, out), cast to `dtype`."""
+    ``w_down``); weights (in, out), cast to `dtype`. GeLU is the tanh
+    approximation, as ``jax.nn.gelu``'s default."""
     if kind == "swiglu":
         g = x @ p["w_gate"].to(dtype)
         u = x @ p["w_up"].to(dtype)
         h = F.silu(g) * u
     else:
-        h = F.gelu(x @ p["w_up"].to(dtype))
+        h = F.gelu(x @ p["w_up"].to(dtype), approximate="tanh")
     return h @ p["w_down"].to(dtype)

@@ -56,6 +56,7 @@ def cold_start(model, manifest_blob: bytes, tenant_key: bytes,
             "overlap_fraction": lb.get("overlap_fraction"),
             "queue_hwm": lb.get("queue_hwm"),
             "decode_tiles": lb.get("decode_tiles"),
+            "eager_flushes": lb.get("eager_flushes"),
             "l2_hits": lb.get("l2_hits"),
         }
         return engine, stats

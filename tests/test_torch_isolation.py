@@ -41,7 +41,10 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.kernels.parity.ops",
               "repro_torch.core.cache.peer", "repro_torch.core.retry",
               "repro_torch.core.faults", "repro_torch.core.gc",
-              "repro_torch.core.loader"):
+              "repro_torch.core.loader", "repro_torch.launch.serve",
+              "repro_torch.models.registry",
+              "repro_torch.configs.starcoder2_15b",
+              "repro_torch.configs.mistral_nemo_12b"):
         assert m in res["modules"]
 
 
