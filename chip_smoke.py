@@ -109,8 +109,38 @@ Phases (any failure exits non-zero):
    prompt past its 4096-token window, in float32, with the card route
    of ``flash_attn`` held against its plain blocked version at every
    layer (``FLASH_F32_TOL``); prefill ms and peak memory printed.
+8. the MoE and hybrid families and the expert-shard restore. (a) At
+   their published widths, in bfloat16, with weights drawn on the card
+   from ``--seed`` (``models.lm.init_device``), one model at a time:
+   arctic-480b cut to 1 of 35 layers (128 experts top-2 and the dense
+   residual MLP), kimi-k2-1t-a32b to 2 of 61 (the dense first layer of
+   d_ff 18432, then 384 experts top-8 and a shared expert; vocab
+   163840), jamba-v0.1-52b to 8 of 32 (one period: attention at slot 4,
+   Mamba elsewhere, MoE on odd slots). Each ``ServeEngine`` serves 8
+   requests of 8-token prompts and 8 new tokens at batch 4 twice, with
+   identical tokens and last logits; the MoE layers of one decode batch
+   are held against a per-token float32 loop (``moe_loop``, within
+   ``MOE_LOOP_TOL``); a 4 x 256-token prefill is timed; jamba's prefill
+   with ``capacity_factor`` E / K must equal decoding the same prompts
+   in float32, with its weights drawn again in float32 (greedy tokens,
+   logits within ``PREFILL_BF16_TOL``); in bfloat16 the same comparison
+   is printed with the tokens each MoE layer routed elsewhere. Tokens/s, ms
+   per decode step beside the floor of reading every expert's weights,
+   prefill ms and peak memory are printed. (b) ``ep_image_config()``'s
+   jamba image (one period at d_model 1024, 1.590 GB float32) is
+   published (SHA and AES kernels) and cold-started through a second
+   service (fused kernel), whose 8 requests must get the tokens of the
+   same weights loaded directly; then ``expert_shard_restore`` for each
+   of 4 EP ranks, each through a fresh service with an empty L1: every
+   array must equal its slice of the published tree byte for byte (the
+   router, ``A_log``, ``conv_w`` and ``dt_proj`` whole), the ranks'
+   expert slices must make up the stacks, and each rank must make one
+   origin GET per distinct non-zero chunk it needs, fewer bytes than
+   the cold start. (c) ``python -m repro_torch.launch.serve --arch
+   jamba-v0.1-52b --publish`` (reduced) in process serves all 8
+   requests.
 
-The last lines are the launch counts of phases 3 to 7, the kernel
+The last lines are the launch counts of phases 3 to 8, the kernel
 table (``{"kernels": [...]}``, each kernel's launches counted on the path
 that runs it, and on every path in ``launches_by_phase``), the
 ``nvidia-smi`` name/power-limit line and
@@ -121,6 +151,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -203,6 +234,24 @@ PREFILL_BF16_TOL = 3e-2
 STARCODER_LAYERS = 2
 STARCODER_PROMPT = 4608
 FLASH_F32_TOL = 1e-4
+# phase 8a: the MoE and hybrid families at their published widths,
+# depth cut to (arch, layers kept) so that the bfloat16 weights (drawn on
+# the card) fit one card one model at a time; ServeEngine answers
+# FAMILY_REQUESTS requests of 8-token prompts (rng_prompt) and FAMILY_NEW
+# new tokens at batch FAMILY_BATCH, twice (the bits must repeat); one
+# decode batch's MoE layer is held against a per-token float32 loop
+# within MOE_LOOP_TOL x max |y|; jamba's prefill of PREFILL_PROMPTS x
+# PREFILL_LEN tokens against decoding them, with capacity_factor E / K
+# (no assignment dropped), in float32, within PREFILL_BF16_TOL (in
+# bfloat16 rounding moves some tokens' top-k experts: printed only)
+FAMILY_MODELS = (("arctic-480b", 1), ("kimi-k2-1t-a32b", 2),
+                 ("jamba-v0.1-52b", 8))
+FAMILY_REQUESTS = 8
+FAMILY_NEW = 8
+FAMILY_BATCH = 4
+MOE_LOOP_TOL = 2e-2
+# phase 8b: expert-parallel restores of a jamba image by EP_SIZE ranks
+EP_SIZE = 4
 STRIPE = KIB512 // 4                    # a 512 KiB chunk's 4-of-5 stripe
 ODD_LENGTHS = (0, 1, 55, 56, 63, 64, 65, 4096, KIB512)
 STRIPE_LENGTHS = (0, 1, 3, 5, 15, 16, 17, STRIPE)
@@ -246,6 +295,8 @@ PATH_KERNELS = {3: ("fused_verify_decrypt", "sha256_many",
                 6: ("sha256_many", "aes_encrypt_many",
                     "fused_verify_decrypt"),
                 7: ("fused_verify_decrypt", "sha256_many",
+                    "aes_encrypt_many"),
+                8: ("fused_verify_decrypt", "sha256_many",
                     "aes_encrypt_many")}
 # phase 5: the storm's workers (worker STORM_WORKERS idles until the
 # poisoned-copy restore). Every worker asks for the image's chunks in
@@ -1826,6 +1877,460 @@ def phase_launcher(seed: int, kernels, ctx: dict, work: Path) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 8
+
+def ep_image_config():
+    """Phase 8b's image: jamba-v0.1-52b's published layout (16 experts
+    top-2 on every other sublayer, attention at slot 4 of a period of 8,
+    Mamba d_state 16, d_conv 4, expand 2, vocab 65536, no positional
+    embedding, head_dim 128) for one period, 8 of its 32 layers, with
+    three cuts: d_model 4096 -> 1024, heads 32 / 8 KV -> 8 / 2, d_ff and
+    dense_d_ff 14336 -> 1024. The float32 image is then 1.590 GB, the
+    size of phase 3's, because publishing runs at ~0.1 GB/s."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=8,
+                               d_model=1024, num_heads=8, num_kv_heads=2,
+                               head_dim=128, d_ff=1024, dense_d_ff=1024)
+
+
+def expert_bytes(cfg, itemsize: int) -> int:
+    """Bytes of `cfg`'s expert stacks at `itemsize` bytes a weight."""
+    from repro_torch.models.lm import flat_specs, param_specs
+    from repro_torch.serve.coldstart import expert_dim
+    return sum(math.prod(sp.shape) * itemsize
+               for name, sp in flat_specs(param_specs(cfg)).items()
+               if expert_dim(name, sp.shape, cfg.num_experts) is not None)
+
+
+def moe_loop(p: dict, x, cfg):
+    """The MoE layer of `x` (T, D) one token at a time, in float32: the
+    router's logits as the model forms them (``x @ router`` in the
+    working dtype), then softmax and top-k (ties to the lower expert) in
+    float32 and the gates renormalised; an assignment is kept while its
+    expert has room, in flat (token, k) order, under the capacity
+    T * K * cf / E (at least 1, at most T, rounded up to 128s from 128);
+    every kept expert's FFN and the shared and residual MLPs from the
+    same bfloat16 weights upcast to float32."""
+    import torch
+    import torch.nn.functional as F
+    T, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    probs = torch.softmax((x @ p["router"]).float(), dim=-1).cpu()
+    cap = min(max(1, int(T * K * cfg.capacity_factor / E)), T)
+    if cap >= 128:
+        cap = -(-cap // 128) * 128
+
+    def ffn(w, v):
+        if cfg.mlp_type == "swiglu":
+            h = F.silu(v @ w["w_gate"].float()) * (v @ w["w_up"].float())
+        else:
+            h = F.gelu(v @ w["w_up"].float(), approximate="tanh")
+        return h @ w["w_down"].float()
+
+    xf = x.float()
+    y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    used = [0] * E
+    for t in range(T):
+        row = probs[t].tolist()
+        top = sorted(range(E), key=lambda e: (-row[e], e))[:K]
+        total = max(sum(row[e] for e in top), 1e-9)
+        for e in top:
+            if used[e] < cap:
+                w = {k: p[k][e] for k in ("w_gate", "w_up", "w_down")
+                     if k in p}
+                y[t] += (row[e] / total) * ffn(w, xf[t])
+            used[e] += 1
+    for extra in ("shared", "residual"):
+        if extra in p:
+            y += ffn(p[extra], xf)
+    return y
+
+
+def serve_recorded(model, prompts: list) -> dict:
+    """`prompts` through a ``ServeEngine`` at batch FAMILY_BATCH:
+    greedy tokens, the last decode step's logits, steps and seconds."""
+    import torch
+
+    from repro_torch.serve.engine import Request, ServeEngine
+    last = {}
+    inner = model.decode_step
+
+    def recorded(state, tokens, pos):
+        logits, state = inner(state, tokens, pos)
+        last["logits"] = logits
+        return logits, state
+
+    model.decode_step = recorded
+    try:
+        eng = ServeEngine(model, max_batch=FAMILY_BATCH, max_len=64)
+        reqs = [Request(i, prompt=p, max_new=FAMILY_NEW)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        res = eng.run_until_drained()
+    finally:
+        del model.decode_step
+    check(all(r.done and len(r.out) == FAMILY_NEW for r in reqs),
+          f"{model.cfg.name}: requests did not complete")
+    return {"tokens": [r.out for r in reqs], "logits": last["logits"],
+            "steps": res["steps"], "seconds": res["seconds"]}
+
+
+def check_moe_layers(model, toks) -> list:
+    """Decode the prompts `toks` (B, S) from a fresh state and hold
+    every MoE layer of the last step against ``moe_loop`` on its input:
+    [relative max error per MoE layer]."""
+    import torch
+
+    from repro_torch.models import blocks
+    calls = []
+    real = blocks.moe_apply
+
+    def rec(p, x, cfg, dtype):
+        y = real(p, x, cfg, dtype)
+        calls.append((p, x, y))
+        return y
+
+    B = toks.shape[0]
+    state = model.init_decode_state(B, 64)
+    blocks.moe_apply = rec
+    try:
+        for t in range(toks.shape[1]):
+            calls.clear()
+            model.decode_step(state, toks[:, t], torch.full((B,), t))
+    finally:
+        blocks.moe_apply = real
+    errs = []
+    for p, x, y in calls:
+        want = moe_loop(p, x[:, 0], model.cfg)
+        err = (y[:, 0].float() - want).abs().max().item()
+        scale = want.abs().max().item()
+        errs.append(err / scale)
+        check(err <= MOE_LOOP_TOL * scale, f"{model.cfg.name}: a MoE layer "
+              f"differs from the per-token loop by {err} (max |y| {scale})")
+    return errs
+
+
+def prefill_against_decoding(model, toks) -> dict:
+    """`model`'s prefill of `toks` (B, S) against decoding them one
+    token a step: the last logits' largest difference, whether the
+    greedy tokens agree, and for each MoE layer how many of the B * S
+    tokens the two routed to another set of experts."""
+    import torch
+
+    from repro_torch.models import moe
+    B, S = toks.shape
+    routes = {"prefill": [], "decode": []}
+    real = moe.route
+    mode = ["prefill"]
+
+    def rec(p, xf, cfg, dtype):
+        gates, experts = real(p, xf, cfg, dtype)
+        routes[mode[0]].append(experts.sort(dim=-1).values)
+        return gates, experts
+
+    moe.route = rec
+    try:
+        logits, _ = model.prefill({"tokens": toks},
+                                  model.init_decode_state(B, S))
+        mode[0] = "decode"
+        state = model.init_decode_state(B, S)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(S):
+            dec, state = model.decode_step(state, toks[:, t],
+                                           torch.full((B,), t))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    finally:
+        moe.route = real
+    n = len(routes["prefill"])
+    flips = [int((routes["prefill"][i].view(B, S, -1)
+                  != torch.stack(routes["decode"][i::n], dim=1))
+                 .any(-1).sum()) for i in range(n)]
+    V = model.cfg.vocab_size
+    a, b = logits[:, :V].float(), dec[:, :V].float()
+    return {"dtype": model.flags.dtype, "decode_path_s": decode_s,
+            "max_abs_logit_diff": (a - b).abs().max().item(),
+            "max_abs_logit": b.abs().max().item(),
+            "argmax_equal": bool(torch.equal(a.argmax(-1), b.argmax(-1))),
+            "tokens_routed_elsewhere_per_moe_layer": flips}
+
+
+def check_prefill_equals_decoding(cfg, seed: int, toks) -> dict:
+    """Jamba's prefill against decoding, in float32 with weights drawn
+    on the card, capacity_factor E / K (no assignment dropped): greedy
+    tokens equal, logits within PREFILL_BF16_TOL. In bfloat16 the two
+    paths' rounding differs enough to move a token's top-k experts now
+    and then, a discontinuity that spreads through the later layers
+    (``prefill_against_decoding`` counts those tokens), so the check is
+    made where rounding is 2^16 times finer."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import DecoderLM, RunFlags
+    from repro_torch.models.lm import init_device
+    nodrop = dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = DecoderLM(nodrop, RunFlags(dtype="float32")).load_flat(
+        init_device(nodrop, seed, "float32"))
+    out = prefill_against_decoding(model, toks)
+    out["peak_device_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+    check(out["argmax_equal"], f"{cfg.name}: prefill's greedy tokens differ "
+          f"from decoding: {out}")
+    check(out["max_abs_logit_diff"] <= PREFILL_BF16_TOL * out["max_abs_logit"],
+          f"{cfg.name}: prefill's logits differ from decoding: {out}")
+    return out
+
+
+def phase_families(seed: int) -> dict:
+    """8a: each of FAMILY_MODELS at its published widths (module doc)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.lm import init_device
+
+    out = {}
+    for arch, layers in FAMILY_MODELS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        flat = init_device(cfg, seed, "bfloat16")
+        model = DecoderLM(cfg, device="cuda").load_flat(flat)
+        torch.cuda.synchronize()
+        weights_s = time.perf_counter() - t0
+        weight_bytes = sum(t.numel() * t.element_size() for t in flat.values())
+        rec = {"layers": layers, "of_layers": full.num_layers,
+               "weights_GB": weight_bytes / 1e9, "weights_s": weights_s}
+        log(f"family: {arch} at full width (d_model {cfg.d_model}, "
+            f"{cfg.num_experts} experts top-{cfg.experts_per_token}), "
+            f"{layers} of {full.num_layers} layers, "
+            f"{rec['weights_GB']:.2f} GB of weights drawn on the card in "
+            f"{weights_s:.2f} s")
+        prompts = [rng_prompt(seed + 30 + i, cfg.vocab_size)
+                   for i in range(FAMILY_REQUESTS)]
+        runs = [serve_recorded(model, prompts) for _ in range(2)]
+        check(runs[0]["tokens"] == runs[1]["tokens"], f"{arch}: a second "
+              "run of the same requests gave other tokens")
+        check(torch.equal(runs[0]["logits"], runs[1]["logits"]),
+              f"{arch}: a second run gave other last logits")
+        new_tokens = sum(len(t) for t in runs[1]["tokens"])
+        rec["tokens_per_s"] = new_tokens / runs[1]["seconds"]
+        rec["decode_step_ms"] = runs[1]["seconds"] / runs[1]["steps"] * 1e3
+        rec["expert_read_floor_ms"] = expert_bytes(cfg, 2) \
+            / HBM_BYTES_PER_S * 1e3
+        rec["weight_read_floor_ms"] = weight_bytes / HBM_BYTES_PER_S * 1e3
+        toks = torch.tensor(prompts[:FAMILY_BATCH])
+        rec["moe_loop_rel_err"] = check_moe_layers(model, toks)
+        ptoks = torch.from_numpy(np.random.default_rng(seed + 40).integers(
+            0, cfg.vocab_size, (PREFILL_PROMPTS, PREFILL_LEN)))
+        model.prefill({"tokens": ptoks},
+                      model.init_decode_state(PREFILL_PROMPTS, PREFILL_LEN))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill({"tokens": ptoks},
+                      model.init_decode_state(PREFILL_PROMPTS, PREFILL_LEN))
+        torch.cuda.synchronize()
+        rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        if cfg.family == "hybrid":
+            nodrop = dataclasses.replace(
+                cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+            rec["prefill_vs_decoding_bfloat16"] = prefill_against_decoding(
+                DecoderLM(nodrop, device="cuda").load_flat(flat), ptoks)
+        rec["peak_device_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["first_tokens"] = runs[1]["tokens"][0]
+        del model, flat, runs
+        if cfg.family == "hybrid":
+            rec["prefill_vs_decoding_float32"] = \
+                check_prefill_equals_decoding(cfg, seed, ptoks)
+        log(f"family: {arch}:", json.dumps(rec))
+        out[arch] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
+class CountingStore:
+    """The reader's view of the store: forwards every call, and counts
+    the ``get_chunk`` calls and the bytes they return."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.gets = 0
+        self.bytes = 0
+        self._lock = threading.Lock()
+
+    def __getattr__(self, item):
+        return getattr(self.inner, item)
+
+    def get_chunk(self, root, name):
+        data = self.inner.get_chunk(root, name)
+        with self._lock:
+            self.gets += 1
+            self.bytes += len(data)
+        return data
+
+
+def same_bytes(a, b) -> bool:
+    import numpy as np
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(
+        a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8))
+
+
+def phase_ep_restore(seed: int, kernels, work: Path) -> dict:
+    """8b: publish, cold start and EP_SIZE expert-parallel restores of
+    ``ep_image_config()``'s image; 8c: the reduced jamba launcher."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.manifest import ZERO_CHUNK
+    from repro_torch.core.service import ImageService, ServiceConfig
+    from repro_torch.core.store import ChunkStore
+    from repro_torch.models import DecoderLM, init_flat
+    from repro_torch.serve.coldstart import cold_start, \
+        expert_shard_restore, expert_shard_slices
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = ep_image_config()
+    t0 = time.perf_counter()
+    flat = init_flat(cfg, seed + 50)
+    out = {"params": sum(a.size for a in flat.values()),
+           "weights_s": time.perf_counter() - t0}
+    key = hashlib.sha256(b"ep tenant key").digest()
+    store = ChunkStore(work / "store")
+
+    def service(st):
+        return ImageService(st, ServiceConfig(device="cuda", root="r0",
+                                              max_batch_bytes=TILE))
+
+    kernels.reset_launches()
+    pub = service(store)
+    t0 = time.perf_counter()
+    blob, st = pub.publish(flat, tenant="ep", tenant_key=key)
+    torch.cuda.synchronize()
+    out["publish_s"] = time.perf_counter() - t0
+    pub.close()
+    out.update(image_bytes=st.bytes_total, chunks=st.total_chunks,
+               unique_chunks=st.unique_chunks, zero_chunks=st.zero_chunks)
+    log(f"ep: {cfg.name} cut to d_model {cfg.d_model}, {cfg.num_layers} "
+        f"layers, {out['params'] / 1e6:.1f} M params, published "
+        f"{st.bytes_total / 1e9:.3f} GB in {out['publish_s']:.2f} s: "
+        f"{st.total_chunks} chunks, {st.unique_chunks} stored, "
+        f"{st.zero_chunks} zero")
+
+    counting = CountingStore(store)
+    svc = service(counting)
+    model = DecoderLM(cfg, device="cuda")
+    engine, cs = cold_start(model, blob, key, svc)
+    svc.close()
+    out["cold_start"] = {k: cs[k] for k in (
+        "load_seconds", "restore_seconds", "origin_fetches")}
+    out["cold_start"].update(origin_gets=counting.gets,
+                             origin_bytes=counting.bytes)
+    check(counting.gets >= st.unique_chunks, f"the cold start fetched "
+          f"{counting.gets} chunks, fewer than the {st.unique_chunks} stored")
+    prompts = [rng_prompt(seed + 60 + i, cfg.vocab_size)
+               for i in range(FAMILY_REQUESTS)]
+
+    def serve(eng):
+        reqs = [Request(i, prompt=p, max_new=FAMILY_NEW)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        check(all(r.done for r in reqs), "ep: requests did not complete")
+        return [r.out for r in reqs]
+
+    tokens = serve(engine)
+    direct = DecoderLM(cfg, device="cuda").load_flat(flat)
+    check(tokens == serve(ServeEngine(direct, max_batch=4, max_len=128)),
+          "ep: the cold-started model's tokens differ from the directly "
+          "loaded model's")
+    del model, engine, direct
+    log("ep: cold start", json.dumps(out["cold_start"]), f"; {len(prompts)} "
+        "requests served, tokens equal the directly loaded model's")
+
+    E = cfg.num_experts
+    whole = [n for n in flat if n.endswith(("ffn/router", "mixer/A_log",
+                                            "mixer/conv_w", "mixer/dt_proj"))]
+    parts = {}
+    out["ranks"] = []
+    for rank in range(EP_SIZE):
+        counting = CountingStore(store)
+        svc = service(counting)
+        handle = svc.open(blob, key)
+        tensors = handle.layout.tensors
+        slices = expert_shard_slices(tensors, E, rank, EP_SIZE)
+        planned = handle.shard_chunks({
+            n: s or [(0, d) for d in tensors[n].shape]
+            for n, s in slices.items()})
+        names = {handle.manifest.chunks[i].name for i in planned} \
+            - {ZERO_CHUNK}
+        t0 = time.perf_counter()
+        got = expert_shard_restore(handle, E, rank, EP_SIZE)
+        torch.cuda.synchronize()
+        rec = {"rank": rank, "restore_s": time.perf_counter() - t0,
+               "chunks": len(planned), "planned_gets": len(names),
+               "origin_gets": counting.gets, "origin_bytes": counting.bytes,
+               "share_of_cold_start_bytes":
+               counting.bytes / out["cold_start"]["origin_bytes"]}
+        svc.close()
+        check(counting.gets == len(names), f"ep rank {rank} made "
+              f"{counting.gets} origin GETs for {len(names)} distinct chunks")
+        check(counting.bytes < out["cold_start"]["origin_bytes"],
+              f"ep rank {rank} fetched as many bytes as the whole image")
+        lo, hi = E * rank // EP_SIZE, E * (rank + 1) // EP_SIZE
+        for n, full in flat.items():
+            if slices[n] is None:
+                check(same_bytes(got[n], full), f"ep rank {rank}: {n} "
+                      "differs from the published tensor")
+            else:
+                check(slices[n][1] == (lo, hi), f"{n}: expert dim not dim 1")
+                check(same_bytes(got[n], full[:, lo:hi]), f"ep rank {rank}: "
+                      f"{n} differs from experts {lo}:{hi} of the published")
+                parts.setdefault(n, []).append(got[n])
+        check(all(slices[n] is None for n in whole),
+              "ep: a router or Mamba tensor was sliced")
+        out["ranks"].append(rec)
+        log("ep: rank", json.dumps(rec))
+        del got
+    check(len(parts) == 12, f"ep: {len(parts)} expert stacks, want 12")
+    for n, ps in parts.items():
+        check(same_bytes(np.concatenate(ps, axis=1), flat[n]),
+              f"ep: the ranks' slices of {n} do not make up the tensor")
+    out["launches_ep"] = dict(kernels.LAUNCHES)
+    log(f"ep: {EP_SIZE} ranks restored their exact slices ({len(parts)} "
+        f"expert stacks whole again, {len(whole)} router and Mamba tensors "
+        "whole on every rank)")
+    del flat, parts
+
+    argv = ["--arch", "jamba-v0.1-52b", "--publish"]
+    log("launcher: python -m repro_torch.launch.serve " + " ".join(argv))
+    res, launches_c, wall = _launch(kernels, argv)
+    check(res["served"] == res["requests"] == 8,
+          f"the reduced jamba launcher served {res['served']}/8")
+    out["launcher"] = {"wall_s": wall, "launches": launches_c,
+                       "config": res["config"]}
+    log("launcher: reduced jamba --publish:", json.dumps(out["launcher"]))
+    out["launches"] = {k: out["launches_ep"][k] + launches_c[k]
+                       for k in launches_c}
+    return out
+
+
 def rng_prompt(seed: int, vocab: int) -> list:
     import numpy as np
     return [int(t) for t in
@@ -1858,7 +2363,8 @@ def main() -> int:
     tmp = ROOT / "build" / f"smoke-store-{args.seed}"
     work = ROOT / "build" / f"smoke-gc-{args.seed}"
     work7 = ROOT / "build" / f"smoke-launch-{args.seed}"
-    for d in (tmp, work, work7):
+    work8 = ROOT / "build" / f"smoke-ep-{args.seed}"
+    for d in (tmp, work, work7, work8):
         shutil.rmtree(d, ignore_errors=True)
     try:
         smi_line = phase_toolchain(kernels)
@@ -1880,9 +2386,13 @@ def main() -> int:
         gc_roll = phase_gc_roll(args.seed, kernels, ctx, work)
         shutil.rmtree(work, ignore_errors=True)
         launcher = phase_launcher(args.seed, kernels, ctx, work7)
+        shutil.rmtree(work7, ignore_errors=True)
+        del ctx
+        families = phase_families(args.seed)
+        ep = phase_ep_restore(args.seed, kernels, work8)
         launches = {3: main_path["launches"], 4: l2_path["launches"],
                     5: storm["launches"], 6: gc_roll["launches"],
-                    7: launcher["launches"]}
+                    7: launcher["launches"], 8: ep["launches"]}
         for phase, names in PATH_KERNELS.items():
             for name in names:
                 check(launches[phase][name] > 0, f"kernel {name} was not "
@@ -1891,7 +2401,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        for d in (tmp, work, work7):
+        for d in (tmp, work, work7, work8):
             shutil.rmtree(d, ignore_errors=True)
     table = []
     for name, (src, replaces, phase) in TPU_KERNELS.items():
@@ -1921,6 +2431,9 @@ def main() -> int:
                           if k != "launches"}
     summary["launcher"] = {k: v for k, v in launcher.items()
                            if k != "launches"}
+    summary["families"] = families
+    summary["ep_restore"] = {k: v for k, v in ep.items()
+                             if k not in ("launches", "launches_ep")}
     summary["smoke_seconds"] = time.perf_counter() - t_all
     log("main path:", json.dumps(summary))
     log(json.dumps({"launches": {f"phase{p}": n

@@ -10,6 +10,9 @@ _ARCH_MODULES = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
     "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_52b",
 }
 
 

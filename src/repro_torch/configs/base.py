@@ -1,5 +1,6 @@
-"""``ModelConfig``: the architecture dataclass (the dense-family fields
-of ``repro.configs.base``; the other families are later slices)."""
+"""``ModelConfig``: the architecture dataclass (the fields of
+``repro.configs.base`` for the dense, MoE and hybrid families; the
+encoder-decoder and modality fields come with those families)."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +10,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense (the only family the port serves)
+    family: str                 # dense | moe | ssm | hybrid | encdec | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -17,6 +18,27 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0           # 0 -> d_model // num_heads
+
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_every: int = 1          # MoE on layers where (layer % moe_every == moe_offset)
+    moe_offset: int = 0
+    dense_residual: bool = False   # arctic: dense MLP residual alongside MoE
+    shared_experts: int = 0        # kimi/deepseek-style always-on experts
+    first_dense_layers: int = 0    # kimi: leading dense layers
+    dense_d_ff: int = 0            # d_ff used by dense layers in a MoE model
+    capacity_factor: float = 1.25
+
+    # --- hybrid (jamba) ---
+    attn_period: int = 0        # attention every `attn_period` layers (0 = all attn)
+    attn_offset: int = 0        # which slot in the period is attention
+
+    # --- ssm ---
+    ssm_type: str = ""          # "mamba" | "xlstm"
+    d_state: int = 16
+    d_conv: int = 4
+    ssm_expand: int = 2
 
     # --- mlp / norm / positional ---
     mlp_type: str = "swiglu"    # swiglu | gelu
@@ -32,6 +54,8 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.num_experts and self.dense_d_ff == 0:
+            object.__setattr__(self, "dense_d_ff", self.d_ff)
 
     @property
     def q_dim(self) -> int:
@@ -43,9 +67,26 @@ class ModelConfig:
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A small config of the same family for CPU tests (the JAX
-        package's ``reduced()`` widths)."""
-        base = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
-                    head_dim=16, d_ff=128, vocab_size=256,
-                    name=self.name + "-reduced")
+        package's ``reduced()`` rules)."""
+        base = dict(
+            num_layers=2,
+            d_model=64,
+            num_heads=4,
+            num_kv_heads=2,
+            head_dim=16,
+            d_ff=128,
+            dense_d_ff=128 if self.num_experts else 0,
+            vocab_size=256,
+            num_experts=4 if self.num_experts else 0,
+            experts_per_token=min(2, self.experts_per_token)
+            if self.num_experts else 0,
+            shared_experts=min(1, self.shared_experts),
+            first_dense_layers=min(1, self.first_dense_layers),
+            attn_period=min(2, self.attn_period) if self.attn_period else 0,
+            attn_offset=0,
+            d_state=8,
+            ssm_expand=2,
+            name=self.name + "-reduced",
+        )
         base.update(overrides)
         return dataclasses.replace(self, **base)

@@ -1,15 +1,25 @@
-"""Dense sublayer = (norm -> attention -> residual) + (norm -> MLP ->
-residual), in prefill and decode mode (the port of the dense part of
-``repro.models.blocks``). Parameters are the JAX package's layout:
-``norm1``/``norm2`` ``{scale}`` (and ``bias`` for layernorm), ``mixer``
-``{wq, wk, wv, wo}`` with (in, out) matrices (and ``bq``...``bo`` with
-``use_bias``), ``ffn`` ``{w_gate, w_up, w_down}`` or ``{w_up,
-w_down}``."""
+"""Sublayer = (norm -> mixer -> residual) [+ (norm -> ffn -> residual)]
+in prefill and decode mode (the port of ``repro.models.blocks``).
+
+A ``SubDef`` names the mixer (``attn`` or ``mamba``; the JAX package's
+``cross_attn``, ``mlstm`` and ``slstm`` come with their families), the
+FFN (``dense``, ``moe`` or ``none``), a ``d_ff`` that overrides
+``cfg.d_ff`` for a dense FFN, and whether attention is causal.
+Parameters are the JAX package's layout: ``norm1``/``norm2`` ``{scale}``
+(and ``bias`` for layernorm); an attention ``mixer`` ``{wq, wk, wv,
+wo}`` with (in, out) matrices (and ``bq``...``bo`` with ``use_bias``); a
+Mamba ``mixer`` ``{in_proj, conv_w, conv_b, x_proj, dt_proj, dt_bias,
+A_log, D, out_proj}``; a dense ``ffn`` ``{w_gate, w_up, w_down}`` or
+``{w_up, w_down}``; a MoE ``ffn`` ``{router, w_gate, w_up, w_down}``
+with (E, in, out) expert stacks, and ``shared``/``residual`` MLPs."""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.attention import (
     decode_attn,
     flash_attn,
@@ -17,6 +27,16 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.common import apply_norm, apply_rope
 from repro_torch.models.mlp import mlp_apply
+from repro_torch.models.moe import moe_apply
+
+LATER_MIXERS = ("cross_attn", "mlstm", "slstm")
+
+
+class SubDef(NamedTuple):
+    mixer: str          # attn | mamba (cross_attn | mlstm | slstm: item 4b)
+    ffn: str            # dense | moe | none
+    d_ff: int = 0       # 0 -> cfg.d_ff
+    causal: bool = True
 
 
 def _proj(p: dict, x: torch.Tensor, nm: str, dtype, cfg: ModelConfig):
@@ -45,20 +65,13 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, dtype,
     return _proj(p, o.reshape(B, cfg.q_dim), "o", dtype, cfg)
 
 
-def sublayer_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, dtype,
-                    cache: dict, pos: torch.Tensor) -> torch.Tensor:
-    h = apply_norm(p["norm1"], x, cfg.norm_type, cfg.norm_eps)
-    x = x + attn_decode(p["mixer"], h, cfg, dtype, cache, pos)
-    h = apply_norm(p["norm2"], x, cfg.norm_type, cfg.norm_eps)
-    return x + mlp_apply(p["ffn"], h, cfg.mlp_type, dtype)
-
-
 def attn_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, dtype,
-                 cache: dict, positions: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) at `positions` (S,). Causal (and sliding-window)
-    attention over the whole sequence; the cache k/v (B, Smax, Hkv, hd)
-    are overwritten IN PLACE with rows [0, S) and zeros after, as the
-    JAX package's new cache holds."""
+                 cache: dict, positions: torch.Tensor,
+                 causal: bool = True) -> torch.Tensor:
+    """x: (B, S, D) at `positions` (S,). Attention over the whole
+    sequence (causal and sliding-window as configured); the cache k/v
+    (B, Smax, Hkv, hd) are overwritten IN PLACE with rows [0, S) and
+    zeros after, as the JAX package's new cache holds."""
     B, S, _ = x.shape
     q = _proj(p, x, "q", dtype, cfg).reshape(B, S, cfg.num_heads,
                                              cfg.head_dim)
@@ -69,7 +82,7 @@ def attn_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, dtype,
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attn(q, k, v, causal=True, window=cfg.sliding_window)
+    o = flash_attn(q, k, v, causal=causal, window=cfg.sliding_window)
     for name, new in (("k", k), ("v", v)):
         c = cache[name]
         c.zero_()
@@ -77,9 +90,72 @@ def attn_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, dtype,
     return _proj(p, o.reshape(B, S, cfg.q_dim), "o", dtype, cfg)
 
 
-def sublayer_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, dtype,
-                     cache: dict, positions: torch.Tensor) -> torch.Tensor:
-    h = apply_norm(p["norm1"], x, cfg.norm_type, cfg.norm_eps)
-    x = x + attn_prefill(p["mixer"], h, cfg, dtype, cache, positions)
+def sublayer_decode_state(cfg: ModelConfig, sd: SubDef, batch: int,
+                          max_len: int, dtype, device=None) -> dict:
+    """One layer's decode state: the KV cache, or the Mamba window and
+    SSM state."""
+    if sd.mixer == "attn":
+        shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if sd.mixer == "mamba":
+        return mamba_mod.mamba_decode_state(cfg, batch, dtype, device)
+    unported_mixer(sd)
+
+
+def unported_mixer(sd: SubDef):
+    """Raise for a mixer the port does not have: NotImplementedError
+    naming the queue item for the JAX package's other mixers."""
+    if sd.mixer in LATER_MIXERS:
+        raise NotImplementedError(
+            f"mixer {sd.mixer!r} is not ported: ROADMAP.md queue 1, "
+            "item 4b")
+    raise ValueError(sd.mixer)
+
+
+def _apply_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, sd: SubDef,
+               dtype) -> torch.Tensor:
     h = apply_norm(p["norm2"], x, cfg.norm_type, cfg.norm_eps)
-    return x + mlp_apply(p["ffn"], h, cfg.mlp_type, dtype)
+    if sd.ffn == "moe":
+        if h.ndim == 2:
+            y = moe_apply(p["ffn"], h[:, None, :], cfg, dtype)[:, 0]
+        else:
+            y = moe_apply(p["ffn"], h, cfg, dtype)
+    else:
+        y = mlp_apply(p["ffn"], h, cfg.mlp_type, dtype)
+    return x + y
+
+
+def sublayer_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, sd: SubDef,
+                   dtype, *, mode: str, positions=None, pos=None,
+                   state=None) -> tuple:
+    """Returns (x, new_state). mode ``prefill``: x (B, S, D) at
+    `positions`, the state filled from the sequence; mode ``decode``:
+    x (B, D), one token at `pos` (B,). An attention cache is updated in
+    place (new_state is `state`); a Mamba state comes back as new
+    tensors, as the JAX package returns it. The JAX package's ``train``
+    and ``encode`` modes come with training (queue item 5)."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"mode {mode!r} is not ported: ROADMAP.md "
+                                  "queue 1, item 5 (training)")
+    h = apply_norm(p["norm1"], x, cfg.norm_type, cfg.norm_eps)
+    new_state = state
+    if sd.mixer == "attn":
+        if mode == "decode":
+            y = attn_decode(p["mixer"], h, cfg, dtype, state, pos)
+        else:
+            y = attn_prefill(p["mixer"], h, cfg, dtype, state, positions,
+                             causal=sd.causal)
+    elif sd.mixer == "mamba":
+        if mode == "decode":
+            y, new_state = mamba_mod.mamba_decode(p["mixer"], h, state, cfg,
+                                                  dtype)
+        else:
+            y, new_state = mamba_mod.mamba_apply(p["mixer"], h, cfg, dtype,
+                                                 return_state=True)
+    else:
+        unported_mixer(sd)
+    x = x + y
+    if sd.ffn != "none":
+        x = _apply_ffn(p, x, cfg, sd, dtype)
+    return x, new_state

@@ -1,16 +1,35 @@
-"""Decoder-only LM, dense family (the port of ``repro.models.lm``).
+"""Decoder-only LM of the dense, MoE and hybrid families (the port of
+``repro.models.lm``).
 
-``DecoderLM`` holds the JAX package's parameter layout: ``embed``
-(padded vocab, D), an ``unembed`` when embeddings are untied, the layer
-stack ``g0/s0/...`` with a leading dim R = num_layers, and
-``final_norm``. ``load_flat`` takes exactly the flat ``{path: array}``
-dict that ``repro.train.checkpoint.state_to_tree`` makes of a JAX
-``DecoderLM``'s params — which is also what ``ImageHandle.restore_tree``
-returns for an image of them — so the two packages serve the same
-weights. Matrices are cast once to the working dtype at load (the JAX
-package casts them at every use; the values are the same); norm scales
-stay float32.
-"""
+``layout(cfg)`` groups the layers as the JAX package does: a dense or
+MoE model is one-sublayer groups (Kimi's leading dense layers ``g0``,
+then its MoE layers ``g1``), Jamba one group of ``attn_period``
+sublayers (attention at ``attn_offset``, Mamba elsewhere, MoE where
+``i % moe_every == moe_offset``). ``DecoderLM`` holds the JAX package's
+parameter layout: ``embed`` (padded vocab, D), an ``unembed`` when
+embeddings are untied, ``g{i}/s{j}/...`` with a leading dim R (the
+group's repeats), and ``final_norm``. ``load_flat`` takes exactly the
+flat ``{path: array}`` dict that ``repro.train.checkpoint.state_to_tree``
+makes of a JAX ``DecoderLM``'s params, which is also what
+``ImageHandle.restore_tree`` returns for an image of them, so the two
+packages serve the same weights.
+
+Dtypes. Leaves are cast once to the working dtype at load (the JAX
+package casts them at every use with ``astype(dtype)``; the values are
+the same), except the leaves it reads without that cast, which stay
+float32: norm ``scale``/``bias`` (norms run in float32) and Mamba's
+``A_log`` (``A = -exp(A_log)`` in float32). Mamba's ``D``, ``dt_bias``
+and ``conv_b`` and the MoE ``router`` are all read through
+``astype(dtype)``, so they take the working dtype.
+
+Decode state. KV caches and Mamba conv windows are made in the
+``init_decode_state`` dtype (bfloat16 by default, whatever the working
+dtype), SSM states in float32. Caches and SSM states are updated in
+place. A conv window takes the dtype the JAX package's state would
+have: the working dtype after a prefill, and its dtype promoted with
+the working dtype after a decode step (so a bfloat16 window becomes
+float32 at the first step of a float32 model); the state dict then
+holds the converted tensor."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -21,9 +40,19 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import sublayer_decode, sublayer_prefill
+from repro_torch.models.blocks import (
+    SubDef,
+    sublayer_apply,
+    sublayer_decode_state,
+    unported_mixer,
+)
 from repro_torch.models.common import apply_norm, embed_lookup, pad_vocab
-from repro_torch.train.checkpoint import LeafSpec, tree_from_flat
+from repro_torch.models.mamba import d_inner, dt_rank
+from repro_torch.train.checkpoint import LeafSpec
+
+# leaves kept in float32 whatever the working dtype (module doc)
+F32_LEAVES = ("scale", "bias", "A_log")
+LATER_FAMILIES = ("ssm", "encdec", "vlm")
 
 
 @dataclass(frozen=True)
@@ -32,66 +61,201 @@ class RunFlags:
     dtype: str = "bfloat16"
 
 
+def layout(cfg: ModelConfig) -> list:
+    """[(repeats, [SubDef per sublayer])] per group, as the JAX
+    package's ``layout``."""
+    if cfg.family == "dense":
+        return [(cfg.num_layers, [SubDef("attn", "dense")])]
+    if cfg.family == "moe":
+        groups = []
+        if cfg.first_dense_layers:
+            groups.append((cfg.first_dense_layers,
+                           [SubDef("attn", "dense", cfg.dense_d_ff)]))
+        groups.append((cfg.num_layers - cfg.first_dense_layers,
+                       [SubDef("attn", "moe")]))
+        return groups
+    if cfg.family == "hybrid":
+        subs = []
+        for i in range(cfg.attn_period):
+            mixer = "attn" if i == cfg.attn_offset else "mamba"
+            ffn = "moe" if (cfg.num_experts
+                            and i % cfg.moe_every == cfg.moe_offset) \
+                else "dense"
+            subs.append(SubDef(mixer, ffn,
+                               cfg.dense_d_ff if ffn == "dense" else 0))
+        return [(cfg.num_layers // cfg.attn_period, subs)]
+    if cfg.family in LATER_FAMILIES:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} ({cfg.name}) is not ported: "
+            "ROADMAP.md queue 1, item 4b")
+    raise ValueError(f"no layout for family {cfg.family}")
+
+
 def param_specs(cfg: ModelConfig) -> dict:
-    """Nested {name: LeafSpec} of the dense layout, float32."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    """Nested {name: LeafSpec} of the JAX package's layout, float32."""
     f32 = np.dtype(np.float32)
-    R, D, V = cfg.num_layers, cfg.d_model, pad_vocab(cfg.vocab_size)
+    D, V = cfg.d_model, pad_vocab(cfg.vocab_size)
 
-    def spec(*shape):
-        return LeafSpec(tuple(shape), f32)
+    def norm(R):
+        if cfg.norm_type == "layernorm":
+            return {"scale": LeafSpec((R, D), f32),
+                    "bias": LeafSpec((R, D), f32)}
+        return {"scale": LeafSpec((R, D), f32)}
 
-    mixer = {"wq": spec(R, D, cfg.q_dim), "wk": spec(R, D, cfg.kv_dim),
-             "wv": spec(R, D, cfg.kv_dim), "wo": spec(R, cfg.q_dim, D)}
-    if cfg.use_bias:
-        mixer.update(bq=spec(R, cfg.q_dim), bk=spec(R, cfg.kv_dim),
-                     bv=spec(R, cfg.kv_dim), bo=spec(R, D))
-    if cfg.mlp_type == "swiglu":
-        ffn = {"w_gate": spec(R, D, cfg.d_ff), "w_up": spec(R, D, cfg.d_ff),
-               "w_down": spec(R, cfg.d_ff, D)}
-    else:
-        ffn = {"w_up": spec(R, D, cfg.d_ff), "w_down": spec(R, cfg.d_ff, D)}
-    norm = ({"scale": spec(R, D), "bias": spec(R, D)}
-            if cfg.norm_type == "layernorm" else {"scale": spec(R, D)})
-    tree = {"embed": spec(V, D),
-            "g0": {"s0": {"norm1": dict(norm), "norm2": dict(norm),
-                          "mixer": mixer, "ffn": ffn}},
-            "final_norm": {k: spec(D) for k in norm}}
+    def mats(R, shapes: dict) -> dict:
+        return {k: LeafSpec((R,) + tuple(s), f32) for k, s in shapes.items()}
+
+    def mlp(R, d_ff):
+        if cfg.mlp_type == "swiglu":
+            return mats(R, {"w_gate": (D, d_ff), "w_up": (D, d_ff),
+                            "w_down": (d_ff, D)})
+        return mats(R, {"w_up": (D, d_ff), "w_down": (d_ff, D)})
+
+    def attn(R):
+        out = mats(R, {"wq": (D, cfg.q_dim), "wk": (D, cfg.kv_dim),
+                       "wv": (D, cfg.kv_dim), "wo": (cfg.q_dim, D)})
+        if cfg.use_bias:
+            out.update(mats(R, {"bq": (cfg.q_dim,), "bk": (cfg.kv_dim,),
+                                "bv": (cfg.kv_dim,), "bo": (D,)}))
+        return out
+
+    def mamba(R):
+        Din, N, dtr = d_inner(cfg), cfg.d_state, dt_rank(cfg)
+        return mats(R, {"in_proj": (D, 2 * Din), "conv_w": (cfg.d_conv, Din),
+                        "conv_b": (Din,), "x_proj": (Din, dtr + 2 * N),
+                        "dt_proj": (dtr, Din), "dt_bias": (Din,),
+                        "A_log": (Din, N), "D": (Din,),
+                        "out_proj": (Din, D)})
+
+    def moe(R):
+        E, F = cfg.num_experts, cfg.d_ff
+        experts = {"w_up": (E, D, F), "w_down": (E, F, D)}
+        if cfg.mlp_type == "swiglu":
+            experts["w_gate"] = (E, D, F)
+        out = mats(R, {"router": (D, E), **experts})
+        if cfg.shared_experts:
+            out["shared"] = mlp(R, F * cfg.shared_experts)
+        if cfg.dense_residual:
+            out["residual"] = mlp(R, cfg.dense_d_ff)
+        return out
+
+    def sublayer(R, sd: SubDef):
+        mixers = {"attn": attn, "mamba": mamba}
+        if sd.mixer not in mixers:
+            unported_mixer(sd)
+        p = {"norm1": norm(R), "mixer": mixers[sd.mixer](R)}
+        if sd.ffn != "none":
+            p["norm2"] = norm(R)
+            p["ffn"] = moe(R) if sd.ffn == "moe" \
+                else mlp(R, sd.d_ff or cfg.d_ff)
+        return p
+
+    tree = {"embed": LeafSpec((V, D), f32)}
     if not cfg.tie_embeddings:
-        tree["unembed"] = spec(V, D)
+        tree["unembed"] = LeafSpec((V, D), f32)
+    for gi, (R, subs) in enumerate(layout(cfg)):
+        tree[f"g{gi}"] = {f"s{j}": sublayer(R, sd)
+                          for j, sd in enumerate(subs)}
+    tree["final_norm"] = {k: LeafSpec(sp.shape[1:], f32)
+                          for k, sp in norm(1).items()}
     return tree
 
 
-def _flat_specs(tree, prefix=()) -> dict:
+def flat_specs(tree, prefix=()) -> dict:
+    """{path: LeafSpec} of a nested spec tree."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            out.update(_flat_specs(v, prefix + (k,)))
+            out.update(flat_specs(v, prefix + (k,)))
         else:
             out["/".join(prefix + (k,))] = v
     return out
 
 
+def init_rule(name: str, shape: tuple) -> tuple:
+    """(kind, argument) of the JAX package's init for one leaf: ones,
+    zeros, ``A_log`` = log(1..N), ``dt_bias`` from a log-uniform dt in
+    [1e-3, 1e-1], or a normal with its scale (embeddings 0.02, Mamba's
+    ``conv_w`` 0.2, matrices 1/sqrt(fan_in))."""
+    leaf = name.rsplit("/", 1)[-1]
+    if leaf in ("scale", "D"):
+        return "ones", None
+    if leaf.startswith("b") or leaf == "conv_b":
+        return "zeros", None
+    if leaf in ("A_log", "dt_bias"):
+        return leaf, None
+    if name in ("embed", "unembed"):
+        return "normal", 0.02
+    if leaf == "conv_w":
+        return "normal", 0.2
+    return "normal", 1.0 / np.sqrt(shape[-2])
+
+
 def init_flat(cfg: ModelConfig, seed: int) -> dict:
-    """Random float32 weights {path: numpy} from `seed`, with the JAX
-    package's init scales (normal / sqrt(fan_in), embeddings 0.02, norm
-    scales 1, biases 0)."""
+    """Random float32 weights {path: numpy} from `seed`, by the JAX
+    package's init rules (``init_rule``)."""
     rng = np.random.default_rng(seed)
     out = {}
-    for name, sp in sorted(_flat_specs(param_specs(cfg)).items()):
-        leaf = name.rsplit("/", 1)[-1]
-        if leaf in ("scale",):
+    for name, sp in sorted(flat_specs(param_specs(cfg)).items()):
+        kind, scale = init_rule(name, sp.shape)
+        if kind == "ones":
             out[name] = np.ones(sp.shape, np.float32)
-        elif leaf.startswith("b"):
+        elif kind == "zeros":
             out[name] = np.zeros(sp.shape, np.float32)
+        elif kind == "A_log":
+            out[name] = np.broadcast_to(
+                np.log(np.arange(1, sp.shape[-1] + 1, dtype=np.float32)),
+                sp.shape).copy()
+        elif kind == "dt_bias":
+            u = rng.uniform(np.log(1e-3), np.log(1e-1), sp.shape)
+            out[name] = np.log(np.expm1(np.exp(u))).astype(np.float32)
         else:
-            scale = 0.02 if name in ("embed", "unembed") \
-                else 1.0 / np.sqrt(sp.shape[-2])
             w = rng.standard_normal(sp.shape, dtype=np.float32)
             w *= np.float32(scale)
             out[name] = w
     return out
+
+
+@torch.no_grad()
+def init_device(cfg: ModelConfig, seed: int, dtype: str = "bfloat16",
+                device="cuda") -> dict:
+    """Random weights {path: tensor} drawn on `device` from a
+    ``torch.Generator`` seeded with `seed`, by ``init_flat``'s rules,
+    each leaf already in the dtype ``DecoderLM.load_flat`` gives it
+    (`dtype`, or float32 for ``F32_LEAVES``): a full-width config's
+    weights never pass through the host. Not the same draws as
+    ``init_flat``."""
+    device = resolve_device(device)
+    work = getattr(torch, dtype)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = {}
+    for name, sp in sorted(flat_specs(param_specs(cfg)).items()):
+        kind, scale = init_rule(name, sp.shape)
+        dt = torch.float32 if name.rsplit("/", 1)[-1] in F32_LEAVES \
+            else work
+        if kind in ("ones", "zeros"):
+            t = (torch.ones if kind == "ones" else torch.zeros)(
+                sp.shape, dtype=dt, device=device)
+        elif kind == "A_log":
+            t = torch.log(torch.arange(1, sp.shape[-1] + 1, device=device,
+                                       dtype=torch.float32))
+            t = t.expand(sp.shape).to(dt).contiguous()
+        elif kind == "dt_bias":
+            u = torch.rand(sp.shape, generator=gen, device=device)
+            u = u * (np.log(1e-1) - np.log(1e-3)) + np.log(1e-3)
+            t = torch.log(torch.expm1(torch.exp(u))).to(dt)
+        else:
+            t = torch.randn(sp.shape, generator=gen, dtype=dt, device=device)
+            t.mul_(scale)
+        out[name] = t
+    return out
+
+
+def _index(tree, r: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return tree[r]
 
 
 class DecoderLM(nn.Module):
@@ -102,15 +266,26 @@ class DecoderLM(nn.Module):
         self.flags = flags
         self.device = resolve_device(device)
         self.dtype = getattr(torch, flags.dtype)
+        self.layout = layout(cfg)
         self.specs = param_specs(cfg)
         self.params: dict | None = None
-        self._layers: list = []
+        self._groups: list = []      # per group: [per-layer params]
+
+    def _place(self, value, sp: LeafSpec, leaf: str) -> torch.Tensor:
+        dt = torch.float32 if leaf in F32_LEAVES else self.dtype
+        if isinstance(value, torch.Tensor):
+            return value.reshape(sp.shape).to(self.device, dt)
+        arr = np.asarray(value, dtype=np.float32).reshape(sp.shape)
+        t = torch.from_numpy(np.require(arr, requirements="CW"))
+        return t.to(self.device, dt)
 
     @torch.no_grad()
     def load_flat(self, flat: dict) -> "DecoderLM":
-        """Load {path: array}: exactly this config's names and shapes
-        (raises on a missing, extra or misshapen tensor)."""
-        want = _flat_specs(self.specs)
+        """Load {path: numpy array or tensor}: exactly this config's
+        names and shapes (raises on a missing, extra or misshapen
+        tensor). Tensors already on the device in their load dtype are
+        taken without a copy."""
+        want = flat_specs(self.specs)
         missing, extra = set(want) - set(flat), set(flat) - set(want)
         if missing or extra:
             raise KeyError(f"load_flat: missing {sorted(missing)}, "
@@ -118,34 +293,36 @@ class DecoderLM(nn.Module):
         for name, sp in want.items():
             if tuple(np.shape(flat[name])) != sp.shape:
                 raise ValueError(f"load_flat: {name} has shape "
-                                 f"{np.shape(flat[name])}, want {sp.shape}")
-        tree = tree_from_flat(self.specs, flat)
-
-        def place(node, path):
-            if isinstance(node, dict):
-                return {k: place(v, path + (k,)) for k, v in node.items()}
-            t = torch.from_numpy(np.require(node, requirements="CW"))
-            keep_f32 = path[-1] in ("scale", "bias")
-            return t.to(self.device, torch.float32 if keep_f32
-                        else self.dtype)
-
-        self.params = place(tree, ())
-        g = self.params["g0"]["s0"]
-        self._layers = [
-            {sub: {k: v[layer] for k, v in g[sub].items()} for sub in g}
-            for layer in range(self.cfg.num_layers)]
+                                 f"{tuple(np.shape(flat[name]))}, want "
+                                 f"{sp.shape}")
+        params: dict = {}
+        for name, sp in want.items():
+            *head, leaf = name.split("/")
+            node = params
+            for k in head:
+                node = node.setdefault(k, {})
+            node[leaf] = self._place(flat[name], sp, leaf)
+        self.params = params
+        self._groups = [[_index(params[f"g{gi}"], r) for r in range(R)]
+                        for gi, (R, _) in enumerate(self.layout)]
         return self
 
     def init_decode_state(self, batch: int, max_len: int,
                           dtype=torch.bfloat16) -> dict:
-        """KV caches, (R, B, max_len, Hkv, hd) each; bfloat16 by
-        default, whatever the working dtype, as in the JAX package."""
-        cfg = self.cfg
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-                 cfg.head_dim)
-        return {"g0": {"s0": {
-            "k": torch.zeros(shape, dtype=dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=dtype, device=self.device)}}}
+        """{g{i}: {s{j}: state}}, each leaf stacked (R, ...): KV caches
+        (B, max_len, Hkv, hd) and Mamba windows in `dtype`, SSM states
+        float32 (module doc)."""
+        states = {}
+        for gi, (R, subs) in enumerate(self.layout):
+            g = {}
+            for j, sd in enumerate(subs):
+                single = sublayer_decode_state(self.cfg, sd, batch, max_len,
+                                               dtype, self.device)
+                g[f"s{j}"] = {k: torch.zeros((R,) + tuple(v.shape),
+                                             dtype=v.dtype, device=v.device)
+                              for k, v in single.items()}
+            states[f"g{gi}"] = g
+        return states
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg, p = self.cfg, self.params
@@ -157,39 +334,55 @@ class DecoderLM(nn.Module):
         if self.params is None:
             raise RuntimeError("DecoderLM has no weights: call load_flat")
 
+    def _run(self, x: torch.Tensor, state: dict, mode: str,
+             **where) -> torch.Tensor:
+        """Every group, layer and sublayer in order; the stacked decode
+        state updated in place (a Mamba window's tensor replaced first
+        when its dtype changes, module doc)."""
+        cfg, dtype = self.cfg, self.dtype
+        for gi, (_, subs) in enumerate(self.layout):
+            g_state = state[f"g{gi}"]
+            for j, sd in enumerate(subs):
+                st = g_state[f"s{j}"]
+                if sd.mixer == "mamba":
+                    conv_dt = dtype if mode == "prefill" \
+                        else torch.promote_types(st["conv"].dtype, dtype)
+                    st["conv"] = st["conv"].to(conv_dt)
+            for r, pl in enumerate(self._groups[gi]):
+                for j, sd in enumerate(subs):
+                    st = g_state[f"s{j}"]
+                    view = {k: v[r] for k, v in st.items()}
+                    x, new = sublayer_apply(pl[f"s{j}"], x, cfg, sd, dtype,
+                                            mode=mode, state=view, **where)
+                    if new is not view:
+                        for k, v in new.items():
+                            st[k][r].copy_(v)
+        return x
+
     @torch.no_grad()
     def prefill(self, batch: dict, state: dict) -> tuple:
         """Full-sequence forward over ``batch["tokens"]`` (B, S) at
         positions 0..S-1 that fills the decode state: returns
         (last-position logits (B, padded vocab) in the working dtype,
-        state), the KV caches holding rows [0, S) (updated in place).
-        ``decode_step`` continues at position S."""
+        state), the KV caches holding rows [0, S) and the Mamba states
+        those after token S-1. ``decode_step`` continues at position
+        S."""
         self._check_loaded()
-        cfg, dtype = self.cfg, self.dtype
         tokens = torch.as_tensor(batch["tokens"]).to(self.device)
-        x = embed_lookup(self.params["embed"], tokens, dtype)   # (B, S, D)
+        x = embed_lookup(self.params["embed"], tokens, self.dtype)
         positions = torch.arange(tokens.shape[1], device=self.device)
-        cache = state["g0"]["s0"]
-        for layer, pl in enumerate(self._layers):
-            x = sublayer_prefill(pl, x, cfg, dtype,
-                                 {"k": cache["k"][layer],
-                                  "v": cache["v"][layer]}, positions)
+        x = self._run(x, state, "prefill", positions=positions)
         return self._logits(x[:, -1]), state
 
     @torch.no_grad()
     def decode_step(self, state: dict, tokens: torch.Tensor,
                     pos: torch.Tensor) -> tuple:
         """tokens: (B,) ids; pos: (B,) positions being written. Returns
-        (logits (B, padded vocab) in the working dtype, state); the KV
-        caches in `state` are updated in place."""
+        (logits (B, padded vocab) in the working dtype, state); the
+        decode state is updated in place."""
         self._check_loaded()
-        cfg, dtype, p = self.cfg, self.dtype, self.params
         tokens = tokens.to(self.device)
         pos = pos.to(self.device)
-        x = embed_lookup(p["embed"], tokens, dtype)          # (B, D)
-        cache = state["g0"]["s0"]
-        for layer, pl in enumerate(self._layers):
-            x = sublayer_decode(pl, x, cfg, dtype,
-                                {"k": cache["k"][layer],
-                                 "v": cache["v"][layer]}, pos)
+        x = embed_lookup(self.params["embed"], tokens, self.dtype)
+        x = self._run(x, state, "decode", pos=pos)
         return self._logits(x), state

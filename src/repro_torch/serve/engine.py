@@ -1,6 +1,13 @@
 """Batched serving engine (the port of ``repro.serve.engine``): slot
 batching over the model's cached ``decode_step``, greedy sampling,
-prompts prefilled by decoding one token per step."""
+prompts prefilled by decoding one token per step.
+
+The decode state is the model's tree of groups and sublayers (KV
+caches, Mamba windows and SSM states), which ``decode_step`` returns
+and the engine keeps. As in the JAX package, admitting a request to a
+freed slot resets its position but not its state: a Mamba sublayer
+starts from the previous occupant's window and SSM state (ROADMAP.md
+§3), while attention masks the old cache rows by position."""
 from __future__ import annotations
 
 import time

@@ -44,7 +44,12 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.core.loader", "repro_torch.launch.serve",
               "repro_torch.models.registry",
               "repro_torch.configs.starcoder2_15b",
-              "repro_torch.configs.mistral_nemo_12b"):
+              "repro_torch.configs.mistral_nemo_12b",
+              "repro_torch.models.moe", "repro_torch.models.mamba",
+              "repro_torch.models.blocks",
+              "repro_torch.configs.arctic_480b",
+              "repro_torch.configs.kimi_k2_1t",
+              "repro_torch.configs.jamba_52b"):
         assert m in res["modules"]
 
 

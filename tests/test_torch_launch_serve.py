@@ -142,15 +142,33 @@ def test_store_image_no_reduced_restores_published_image(tmp_path,
 
 
 def test_build_model_builds_dense_and_refuses_other_families():
+    """Every registered config builds (the dense, MoE and hybrid
+    families); the families still to port raise, naming their queue
+    item."""
     assert {"smollm-360m", "tinyllama-1.1b", "starcoder2-15b",
-            "mistral-nemo-12b"} <= set(list_archs())
+            "mistral-nemo-12b", "arctic-480b", "kimi-k2-1t-a32b",
+            "jamba-v0.1-52b"} <= set(list_archs())
     for arch in list_archs():
         cfg = get_config(arch)
-        assert cfg.family == "dense"
+        assert cfg.family in ("dense", "moe", "hybrid")
         m = build_model(cfg.reduced(), device="cpu")
         assert isinstance(m, DecoderLM) and m.device.type == "cpu"
-    moe = ModelConfig(name="moe-x", family="moe", num_layers=1, d_model=8,
+    ssm = ModelConfig(name="ssm-x", family="ssm", num_layers=1, d_model=8,
                       num_heads=2, num_kv_heads=1, d_ff=8, vocab_size=16)
     with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 1, item 4"):
-        build_model(moe, device="cpu")
+                       match=r"ROADMAP\.md queue 1, item 4b"):
+        build_model(ssm, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "kimi-k2-1t-a32b",
+                                  "jamba-v0.1-52b"])
+def test_publish_path_serves_moe_and_hybrid(arch, capsys):
+    """The reduced ``--publish`` launcher of each MoE and hybrid config
+    serves every request with the tokens of the same ``init_flat``
+    weights loaded directly."""
+    out = serve.main(["--arch", arch, "--requests", "3", "--max-new", "3",
+                      "--publish", *CPU])
+    assert out["config"] == arch + "-reduced"
+    assert out["served"] == out["requests"] == 3
+    assert out["tokens"] == _direct_tokens(get_config(arch).reduced(), 3, 3)
+    assert "served 3/3 requests" in capsys.readouterr().out
