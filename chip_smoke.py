@@ -139,8 +139,40 @@ Phases (any failure exits non-zero):
    the cold start. (c) ``python -m repro_torch.launch.serve --arch
    jamba-v0.1-52b --publish`` (reduced) in process serves all 8
    requests.
+9. a crash and resume. (a) SmolLM-360M at full width (weights drawn on
+   the card from ``--seed``) trains under the ``baseline`` variant
+   (float32 master weights and Adam moments, bfloat16 compute, full
+   remat), ``LoopConfig(batch=8, seq=512, ckpt_every=4)``, with a
+   ``CheckpointManager`` whose ``ImageService`` (``torch-fused``) sits
+   on a fresh store and ``GenerationalGC``. Trainer A runs on from
+   step 0 in one ``run``: step 4 snapshots the state and starts the
+   checkpoint's upload on the manager's thread (SHA-256 and AES
+   kernels), steps 5-6 train while that upload is in flight (checked;
+   their step ms are printed beside steps 2-4's), and the
+   ``failure_hook`` then raises ``WorkerFailure``. The upload lands
+   (the simulated crash spares it) and every tensor of the step-4
+   snapshot is hashed on the upload thread after its publish. Trainer B, through a
+   new service on the same store (empty L1), resumes (fused kernel): it
+   must come back at step 4 with every tensor byte-identical to A's
+   snapshot, and its steps 5-6 must give A's losses within
+   ``TRAIN_LOSS_TOL`` (whether they are bitwise equal is printed). B
+   trains on to the step-8 checkpoint; the run's records are
+   rediscovered from the store, ``retire_before(keep_last=1)`` must
+   return exactly the chunks only the step-4 image held and the sweep
+   must reclaim them all. ``ElasticCoordinator(1, 4)`` kills ``w-0-2``
+   and plans its recovery over the step-8 image with dim 0 of every
+   tensor split four ways, through a fresh service (empty L1, origin
+   GETs counted): at most ``RECOVERY_MAX_FRACTION`` of the chunks, one
+   origin GET per distinct non-zero chunk of the plan; the shard is
+   then restored (fused kernel) and must equal the slices of B's
+   step-8 state. Step ms, tokens/s, publish s, the snapshot's host-copy
+   s, resume s and recovery s are printed. (b)
+   ``repro_torch.launch.train.main(["--arch", "smollm-360m",
+   "--reduced", "--steps", "4", "--ckpt-every", "2", "--variant",
+   "opt8bit", "--store", ...])``, then the same with ``--resume``,
+   which must start at step 4; both must print the reference's lines.
 
-The last lines are the launch counts of phases 3 to 8, the kernel
+The last lines are the launch counts of phases 3 to 9, the kernel
 table (``{"kernels": [...]}``, each kernel's launches counted on the path
 that runs it, and on every path in ``launches_by_phase``), the
 ``nvidia-smi`` name/power-limit line and
@@ -252,6 +284,24 @@ FAMILY_BATCH = 4
 MOE_LOOP_TOL = 2e-2
 # phase 8b: expert-parallel restores of a jamba image by EP_SIZE ranks
 EP_SIZE = 4
+# phase 9: SmolLM-360M at full width trains under the launcher's
+# "baseline" variant (float32 master weights and moments, bfloat16
+# compute, full remat), TRAIN_BATCH x TRAIN_SEQ tokens a step, a
+# checkpoint every TRAIN_CKPT_EVERY steps; trainer A crashes before step
+# TRAIN_CRASH_AT + 1, B resumes from the step-4 checkpoint and must
+# repeat A's losses within TRAIN_LOSS_TOL relative (the float32 SDPA
+# backward need not repeat its bits), then trains on to the step-8
+# checkpoint. Elastic recovery of w-0-2 of a (1, RECOVERY_MP) grid, dim
+# 0 of every tensor split RECOVERY_MP ways, may fetch at most
+# RECOVERY_MAX_FRACTION of the step-8 image's chunks
+TRAIN_BATCH = 8
+TRAIN_SEQ = 512
+TRAIN_CKPT_EVERY = 4
+TRAIN_CRASH_AT = 6
+TRAIN_LOSS_TOL = 1e-4
+RECOVERY_MP = 4
+RECOVERY_MAX_FRACTION = 0.30
+RECOVERY_L1_BYTES = 2 << 30             # holds the shard: restored from L1
 STRIPE = KIB512 // 4                    # a 512 KiB chunk's 4-of-5 stripe
 ODD_LENGTHS = (0, 1, 55, 56, 63, 64, 65, 4096, KIB512)
 STRIPE_LENGTHS = (0, 1, 3, 5, 15, 16, 17, STRIPE)
@@ -297,7 +347,9 @@ PATH_KERNELS = {3: ("fused_verify_decrypt", "sha256_many",
                 7: ("fused_verify_decrypt", "sha256_many",
                     "aes_encrypt_many"),
                 8: ("fused_verify_decrypt", "sha256_many",
-                    "aes_encrypt_many")}
+                    "aes_encrypt_many"),
+                9: ("sha256_many", "aes_encrypt_many",
+                    "fused_verify_decrypt")}
 # phase 5: the storm's workers (worker STORM_WORKERS idles until the
 # poisoned-copy restore). Every worker asks for the image's chunks in
 # the same order, so the first to probe leads nearly every flight (on
@@ -987,8 +1039,9 @@ def phase_main_path(seed: int, kernels, tmp: Path) -> tuple:
 
 
 def tree_digests(tree: dict) -> dict:
-    import numpy as np
-    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+    """Per-leaf SHA-256 of a flat tree (bfloat16 leaves as their bits)."""
+    from repro_torch.core.layout import leaf_bytes
+    return {k: hashlib.sha256(leaf_bytes(v).tobytes()).hexdigest()
             for k, v in tree.items()}
 
 
@@ -2331,6 +2384,288 @@ def phase_ep_restore(seed: int, kernels, work: Path) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 9
+
+def image_chunk_names(store, root: str, image_id: str) -> set:
+    """The non-zero chunk names of an image, from its public manifest."""
+    from repro_torch.core.manifest import ZERO_CHUNK, read_public
+    pub = read_public(store.get_manifest(root, image_id))
+    return {name for _i, name, _s in pub["chunks"]} - {ZERO_CHUNK}
+
+
+def phase_train_resume(seed: int, kernels, work: Path) -> dict:
+    """9a: SmolLM-360M at full width trains, checkpoints through the
+    service, crashes and resumes byte-identical; retention and a sweep;
+    elastic recovery of one worker's shard. 9b: the reduced launcher
+    and its --resume."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.gc import GenerationalGC
+    from repro_torch.core.service import ImageService, ServiceConfig
+    from repro_torch.core.store import ChunkStore
+    from repro_torch.launch.variants import get_variant
+    from repro_torch.train.checkpoint import CheckpointManager, state_to_tree
+    from repro_torch.train.elastic import ElasticCoordinator
+    from repro_torch.train.loop import LoopConfig, Trainer, WorkerFailure
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = get_config("smollm-360m")
+    _policy, flags, opt = get_variant("baseline", cfg, SHAPES["train_4k"])
+    loop = LoopConfig(steps=TRAIN_CKPT_EVERY, batch=TRAIN_BATCH,
+                      seq=TRAIN_SEQ, ckpt_every=TRAIN_CKPT_EVERY,
+                      log_every=1, seed=seed, opt=OptConfig(**opt))
+    key = hashlib.sha256(b"train tenant key").digest()
+    store = ChunkStore(work / "store")
+    gc = GenerationalGC(store)
+    services = []
+
+    class SnapshotManager(CheckpointManager):
+        """Hashes each uploaded snapshot on the upload thread, after its
+        publish, so that no training step waits on the hashing."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.digests, self.snapshot_bytes = {}, {}
+
+        def _upload(self, step, host_tree):
+            super()._upload(step, host_tree)
+            self.digests[step] = tree_digests(host_tree)
+            self.snapshot_bytes[step] = sum(v.nbytes
+                                            for v in host_tree.values())
+
+        def uploading(self) -> bool:
+            return self._pending is not None and self._pending.is_alive()
+
+    def manager(l1_bytes=256 << 20, st=store, cls=CheckpointManager):
+        svc = ImageService(st, ServiceConfig(
+            device="cuda", decode_backend="torch-fused", max_batch_bytes=TILE,
+            l1_bytes=l1_bytes), pins=gc.pins, refcounts=gc.refcounts)
+        services.append(svc)
+        return cls(st, gc, tenant="train", tenant_key=key,
+                   run_name="smollm", service=svc)
+
+    out = {"config": cfg.name, "variant": "baseline",
+           "flags": {"dtype": flags.dtype, "remat": flags.remat},
+           "moments": loop.opt.moments, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ}
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    mgr_a = manager(cls=SnapshotManager)
+    t0 = time.perf_counter()
+    a = Trainer(cfg, loop, ckpt_mgr=mgr_a, flags=flags, device="cuda").init()
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    # one run toward step 8: steps 1-4, the step-4 save, steps 5-6
+    # under its upload, then the crash
+    a.failure_hook = lambda step: step >= TRAIN_CRASH_AT
+    t0 = time.perf_counter()
+    try:
+        a.run(2 * TRAIN_CKPT_EVERY)
+        raise SmokeFailure("trainer A did not crash")
+    except WorkerFailure as e:
+        check(e.step == TRAIN_CRASH_AT, f"A crashed at step {e.step}")
+    out["steps_wall_s"] = time.perf_counter() - t0
+    out["upload_in_flight_at_crash"] = mgr_a.uploading()
+    check(out["upload_in_flight_at_crash"], "the step-4 upload ended "
+          f"before step {TRAIN_CRASH_AT} did: no step ran under it")
+    t0 = time.perf_counter()
+    mgr_a.wait()
+    out["upload_left_at_crash_s"] = time.perf_counter() - t0
+    rec4 = mgr_a.records[-1]
+    check(rec4.step == TRAIN_CKPT_EVERY, f"A's checkpoint is at step "
+          f"{rec4.step}")
+    out["snapshot_host_copy_s"] = mgr_a.last_snapshot_s
+    out["publish_s"] = rec4.stats["seconds"]
+    out["checkpoint_bytes"] = rec4.stats["bytes_total"]
+    out["checkpoint_unique_chunks"] = rec4.stats["unique_chunks"]
+    out["publish_GBps"] = rec4.stats["bytes_total"] / rec4.stats["seconds"] \
+        / 1e9
+    launches_pub = dict(kernels.LAUNCHES)
+    want = mgr_a.digests[TRAIN_CKPT_EVERY]
+    out["state_tensors"] = len(want)
+    out["state_bytes"] = mgr_a.snapshot_bytes[TRAIN_CKPT_EVERY]
+    log(f"train: {cfg.name} [baseline] B={TRAIN_BATCH} S={TRAIN_SEQ}, "
+        f"weights drawn in {out['init_s']:.2f} s; step-4 checkpoint "
+        f"{rec4.stats['bytes_total'] / 1e9:.3f} GB, "
+        f"{rec4.stats['unique_chunks']} chunks stored, published in "
+        f"{out['publish_s']:.2f} s ({out['publish_GBps']:.3f} GB/s), host "
+        f"copy {out['snapshot_host_copy_s']:.2f} s, "
+        f"{out['upload_left_at_crash_s']:.2f} s of it left when A "
+        f"crashed; launches {json.dumps(launches_pub)}")
+
+    hist_a = {h["step"]: h for h in a.history}
+    out["step_ms_all"] = [1e3 * hist_a[s]["s"]
+                          for s in range(1, TRAIN_CRASH_AT + 1)]
+    out["step_ms"] = float(np.median(out["step_ms_all"][1:TRAIN_CKPT_EVERY]))
+    out["step_ms_under_upload"] = out["step_ms_all"][TRAIN_CKPT_EVERY:]
+    out["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (out["step_ms"] / 1e3)
+    out["losses_a"] = [hist_a[s]["loss"] for s in range(1, TRAIN_CRASH_AT + 1)]
+    check(all(np.isfinite(out["losses_a"])), "A's losses are not finite")
+    out["peak_device_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"train: A crashed at step {TRAIN_CRASH_AT}; step "
+        f"{out['step_ms']:.2f} ms (median of steps 2-{TRAIN_CKPT_EVERY}), "
+        f"{out['tokens_per_s']:.0f} tokens/s; steps "
+        f"{TRAIN_CKPT_EVERY + 1}-{TRAIN_CRASH_AT} under the step-4 upload "
+        f"{[round(x, 2) for x in out['step_ms_under_upload']]} ms (steps "
+        f"1-{TRAIN_CKPT_EVERY}: "
+        f"{[round(x, 2) for x in out['step_ms_all'][:TRAIN_CKPT_EVERY]]}); "
+        f"losses {out['losses_a']}, peak {out['peak_device_GB']:.2f} GB")
+    del a
+    mgr_a.service.close()
+    torch.cuda.empty_cache()
+
+    # B: a new service on the same store, its L1 empty
+    mgr_b = manager()
+    b = Trainer(cfg, loop, ckpt_mgr=mgr_b, flags=flags, device="cuda")
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    b.resume()
+    torch.cuda.synchronize()
+    out["resume_s"] = time.perf_counter() - t0
+    out["resume_fused_launches"] = kernels.LAUNCHES["fused_verify_decrypt"] \
+        - before["fused_verify_decrypt"]
+    check(b.step == TRAIN_CKPT_EVERY, f"B resumed at step {b.step}")
+    check(out["resume_fused_launches"] > 0,
+          "the resume did not launch the fused kernel")
+    got = tree_digests(state_to_tree(b.state))
+    check(got == want, "the resumed state differs from A's step-4 snapshot "
+          f"in {sorted(k for k in want if got.get(k) != want[k])[:5]}")
+    b.run(TRAIN_CRASH_AT - TRAIN_CKPT_EVERY)
+    hist_b = {h["step"]: h for h in b.history}
+    out["losses_b"] = [hist_b[s]["loss"] for s in
+                       range(TRAIN_CKPT_EVERY + 1, TRAIN_CRASH_AT + 1)]
+    ref = out["losses_a"][TRAIN_CKPT_EVERY:]
+    out["losses_bitwise_equal"] = out["losses_b"] == ref
+    out["loss_max_rel_diff"] = max(abs(x - y) / abs(y)
+                                   for x, y in zip(out["losses_b"], ref))
+    check(out["loss_max_rel_diff"] <= TRAIN_LOSS_TOL, f"B's losses "
+          f"{out['losses_b']} differ from A's {ref}")
+    log(f"train: B resumed at step {TRAIN_CKPT_EVERY} in "
+        f"{out['resume_s']:.2f} s ({out['resume_fused_launches']} fused "
+        "launches), "
+        f"{len(got)} tensors byte-identical to A's snapshot; steps 5-6 "
+        f"losses {out['losses_b']} (A: {ref}), bitwise equal: "
+        f"{out['losses_bitwise_equal']}, max rel diff "
+        f"{out['loss_max_rel_diff']:.3g}")
+
+    # B trains on to the step-8 checkpoint; the restarted trainer adopts
+    # the run's history from the store, keeps the newest and sweeps
+    b.run(2 * TRAIN_CKPT_EVERY - TRAIN_CRASH_AT)
+    rec8 = mgr_b.records[-1]
+    check(rec8.step == 2 * TRAIN_CKPT_EVERY, f"B's checkpoint is at step "
+          f"{rec8.step}")
+    out["publish2_s"] = rec8.stats["seconds"]
+    snap8 = state_to_tree(b.state)
+    mgr_b.records = mgr_b.discover()
+    check([r.step for r in mgr_b.records] == [4, 8],
+          f"discover found steps {[r.step for r in mgr_b.records]}")
+    only4 = image_chunk_names(store, rec4.root, rec4.image_id) \
+        - image_chunk_names(store, rec8.root, rec8.image_id)
+    dead = mgr_b.retire_before(keep_last=1)
+    swept = gc.sweep(gc.active)
+    check(dead == only4, f"retire_before returned {len(dead)} chunks, the "
+          f"step-4 image alone holds {len(only4)}")
+    check(swept == len(dead) > 0, f"the sweep reclaimed {swept} of "
+          f"{len(dead)} dead chunks")
+    check(set(store.list_chunks(gc.active)) ==
+          image_chunk_names(store, rec8.root, rec8.image_id),
+          "the root holds other chunks than the step-8 image's")
+    out["retired_chunks"] = len(dead)
+    out["swept_chunks"] = swept
+    log(f"train: B checkpointed step 8 ({out['publish2_s']:.2f} s); "
+        f"retire_before(keep_last=1) freed {len(dead)} chunks, the sweep "
+        f"reclaimed {swept}")
+    del b
+    mgr_b.service.close()
+    torch.cuda.empty_cache()
+
+    # elastic recovery: a fresh reader, empty L1, counted origin GETs
+    counting = CountingStore(store)
+    svc = ImageService(counting, ServiceConfig(
+        device="cuda", max_batch_bytes=TILE, l1_bytes=RECOVERY_L1_BYTES),
+        pins=gc.pins)
+    handle = svc.open(store.get_manifest(rec8.root, rec8.image_id), key,
+                      root=rec8.root)
+    co = ElasticCoordinator(1, RECOVERY_MP)
+    co.kill("w-0-2")
+    plan = co.plan_recovery(
+        "w-0-2", handle,
+        param_specs_fn=lambda n, s: [RECOVERY_MP] + [1] * (len(s) - 1))
+    from repro_torch.core.manifest import ZERO_CHUNK
+    names = {handle.manifest.chunks[i].name for i in plan["chunks"]} \
+        - {ZERO_CHUNK}
+    stats = co.execute_recovery(plan, handle)
+    gets = counting.gets
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    shards = handle.restore_shards(plan["shard_slices"])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    svc.close()
+    out["recovery"] = {
+        "chunks": len(plan["chunks"]), "image_chunks":
+        handle.layout.num_chunks, "chunk_fraction": plan["chunk_fraction"],
+        "distinct_nonzero_chunks": len(names), "origin_gets": gets,
+        "origin_fetches": stats["origin_fetches"],
+        "prefetch_s": stats["seconds"], "restore_s": restore_s,
+        "gets_after_restore": counting.gets,
+        "fused_launches": kernels.LAUNCHES["fused_verify_decrypt"]
+        - before["fused_verify_decrypt"]}
+    check(plan["chunk_fraction"] <= RECOVERY_MAX_FRACTION,
+          f"recovery needs {plan['chunk_fraction']:.3f} of the chunks")
+    check(gets == stats["origin_fetches"] == len(names), f"recovery made "
+          f"{gets} origin GETs ({stats['origin_fetches']} counted) for "
+          f"{len(names)} distinct non-zero chunks")
+    check(co.workers["w-0-2"].alive, "w-0-2 was not brought back")
+    for n, sl in plan["shard_slices"].items():
+        want_shard = np.ascontiguousarray(
+            snap8[n][tuple(slice(a, b) for a, b in sl)])
+        check(same_bytes(shards[n], want_shard),
+              f"recovered shard of {n} differs from the step-8 state")
+    del snap8, shards
+    log("train: recovery of w-0-2 (mp 4):", json.dumps(out["recovery"]))
+
+    # 9b: the launcher, reduced, then --resume
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.launch import train as launch_train
+    argv = ["--arch", "smollm-360m", "--reduced", "--steps", "4",
+            "--ckpt-every", "2", "--variant", "opt8bit", "--store",
+            str(work / "launch")]
+    line = re.compile(r"step +\d+  loss -?[\d.]+  gnorm [\d.]+  [\d.]+s")
+    out["launcher"] = []
+    for extra, start in (([], 0), (["--resume"], 4)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            hist = launch_train.main(argv + extra)
+        torch.cuda.synchronize()
+        text = buf.getvalue().splitlines()
+        log("launcher: python -m repro_torch.launch.train "
+            + " ".join(argv + extra))
+        for ln in text:
+            log("  " + ln)
+        check(text[0] == f"training smollm-360m [opt8bit] from step {start}",
+              f"the launcher printed {text[0]!r}")
+        check(all(line.fullmatch(ln) for ln in text[1:-1]) and
+              text[-1].startswith("checkpoints: [("),
+              "the launcher's lines differ from the reference's")
+        check(hist[-1]["step"] == start + 4, f"the launcher stopped at step "
+              f"{hist[-1]['step']}")
+        out["launcher"].append({"start": start, "wall_s":
+                                time.perf_counter() - t0,
+                                "last_loss": hist[-1]["loss"]})
+    out["launches"] = dict(kernels.LAUNCHES)
+    for svc in services:
+        svc.close()
+    torch.cuda.empty_cache()
+    return out
+
+
 def rng_prompt(seed: int, vocab: int) -> list:
     import numpy as np
     return [int(t) for t in
@@ -2364,7 +2699,8 @@ def main() -> int:
     work = ROOT / "build" / f"smoke-gc-{args.seed}"
     work7 = ROOT / "build" / f"smoke-launch-{args.seed}"
     work8 = ROOT / "build" / f"smoke-ep-{args.seed}"
-    for d in (tmp, work, work7, work8):
+    work9 = ROOT / "build" / f"smoke-train-{args.seed}"
+    for d in (tmp, work, work7, work8, work9):
         shutil.rmtree(d, ignore_errors=True)
     try:
         smi_line = phase_toolchain(kernels)
@@ -2390,9 +2726,12 @@ def main() -> int:
         del ctx
         families = phase_families(args.seed)
         ep = phase_ep_restore(args.seed, kernels, work8)
+        shutil.rmtree(work8, ignore_errors=True)
+        train = phase_train_resume(args.seed, kernels, work9)
         launches = {3: main_path["launches"], 4: l2_path["launches"],
                     5: storm["launches"], 6: gc_roll["launches"],
-                    7: launcher["launches"], 8: ep["launches"]}
+                    7: launcher["launches"], 8: ep["launches"],
+                    9: train["launches"]}
         for phase, names in PATH_KERNELS.items():
             for name in names:
                 check(launches[phase][name] > 0, f"kernel {name} was not "
@@ -2401,7 +2740,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        for d in (tmp, work, work7, work8):
+        for d in (tmp, work, work7, work8, work9):
             shutil.rmtree(d, ignore_errors=True)
     table = []
     for name, (src, replaces, phase) in TPU_KERNELS.items():
@@ -2434,6 +2773,7 @@ def main() -> int:
     summary["families"] = families
     summary["ep_restore"] = {k: v for k, v in ep.items()
                              if k not in ("launches", "launches_ep")}
+    summary["train"] = {k: v for k, v in train.items() if k != "launches"}
     summary["smoke_seconds"] = time.perf_counter() - t_all
     log("main path:", json.dumps(summary))
     log(json.dumps({"launches": {f"phase{p}": n

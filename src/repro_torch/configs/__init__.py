@@ -3,7 +3,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.base import SHAPES, ModelConfig, \
+    ShapeConfig  # noqa: F401
 
 _ARCH_MODULES = {
     "smollm-360m": "repro_torch.configs.smollm_360m",

@@ -1,6 +1,7 @@
 """``ModelConfig``: the architecture dataclass (the fields of
 ``repro.configs.base`` for the dense, MoE and hybrid families; the
-encoder-decoder and modality fields come with those families)."""
+encoder-decoder and modality fields come with those families), and the
+JAX package's ``ShapeConfig`` cells (``SHAPES``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -90,3 +91,19 @@ class ModelConfig:
         )
         base.update(overrides)
         return dataclasses.replace(self, **base)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}

@@ -13,12 +13,21 @@ for a parameter pytree:
 ``shard_byte_ranges`` maps a (tensor, per-dim shard index) to the byte
 ranges it occupies inside the image, which is what shard-aware demand
 loading (the paper's *sparsity*) consumes.
+
+Leaves are numpy arrays or torch tensors. A bfloat16 leaf (a torch
+``bfloat16`` tensor, or an array carrying the JAX package's
+``bfloat16`` dtype) is written as its raw 16-bit patterns under the
+dtype string ``"bfloat16"``, as the JAX package writes it, and reads
+back as a CPU torch ``bfloat16`` tensor (``leaf_array`` gives its
+``uint16`` bits where a numpy array is wanted): numpy has no bfloat16
+of its own, and the port never loads ``ml_dtypes``, which gives it one.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 CHUNK_SIZE = 512 * 1024  # paper §2: fixed 512 KiB chunks
 
@@ -38,6 +47,10 @@ class ImageLayout:
     image_size: int          # chunk-aligned total
     chunk_size: int = CHUNK_SIZE
 
+    @property
+    def num_chunks(self) -> int:
+        return self.image_size // self.chunk_size
+
     def to_table(self) -> list:
         return [[t.name, t.offset, t.nbytes, t.dtype, list(t.shape)]
                 for t in self.tensors.values()]
@@ -55,6 +68,58 @@ class ImageLayout:
 
 def _align(n: int, a: int) -> int:
     return ((n + a - 1) // a) * a
+
+
+BF16 = "bfloat16"
+
+
+def dtype_name(dtype) -> str:
+    """The layout's dtype string of a numpy or torch dtype (or of such a
+    string): numpy's name, ``"bfloat16"`` for either package's
+    bfloat16."""
+    return str(dtype).removeprefix("torch.")
+
+
+def leaf_dtype(leaf) -> str:
+    """The layout's dtype string of a leaf (``dtype_name``, module doc)."""
+    if isinstance(leaf, torch.Tensor):
+        return dtype_name(leaf.dtype)
+    return dtype_name(np.asarray(leaf).dtype)
+
+
+def bf16_tensor(value) -> torch.Tensor:
+    """A bfloat16 leaf as a torch ``bfloat16`` tensor: a tensor cast, or
+    a numpy array's 16-bit patterns (``uint16`` bits, or the JAX
+    package's bfloat16 array) copied into a CPU tensor."""
+    if isinstance(value, torch.Tensor):
+        return value.to(torch.bfloat16)
+    bits = np.asarray(value).view(np.int16).copy()    # C order, any ndim
+    return torch.from_numpy(bits).view(torch.bfloat16)
+
+
+def leaf_array(leaf) -> np.ndarray:
+    """A leaf as a numpy array with its bytes: a torch tensor through
+    the host, a bfloat16 tensor as its ``uint16`` bit patterns."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.contiguous().view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+    return np.asarray(leaf)
+
+
+def leaf_bytes(leaf) -> np.ndarray:
+    """The leaf's bytes, C order, as a flat ``uint8`` array."""
+    return np.ascontiguousarray(leaf_array(leaf)).view(np.uint8).reshape(-1)
+
+
+def array_from_bytes(raw, dtype: str, shape: tuple):
+    """The inverse of ``leaf_bytes`` for a layout's dtype string: a
+    numpy array over `raw`, or a CPU torch ``bfloat16`` tensor (a copy)
+    for ``"bfloat16"``."""
+    if dtype == BF16:
+        return bf16_tensor(np.frombuffer(raw, np.uint16).reshape(shape))
+    return np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape)
 
 
 def canonical_paths(tree) -> list:
@@ -88,10 +153,9 @@ def build_layout(tree, chunk_size: int = CHUNK_SIZE) -> ImageLayout:
     tensors = {}
     offset = 0
     for name, leaf in canonical_paths(tree):
-        arr = np.asarray(leaf)
-        nb = arr.nbytes
-        tensors[name] = TensorRange(name, offset, nb, str(arr.dtype),
-                                    tuple(arr.shape))
+        nb = leaf_bytes(leaf).nbytes
+        tensors[name] = TensorRange(name, offset, nb, leaf_dtype(leaf),
+                                    tuple(np.shape(leaf)))
         offset = _align(offset + nb, chunk_size)
     return ImageLayout(tensors, _align(offset, chunk_size) or chunk_size,
                        chunk_size)
@@ -106,7 +170,7 @@ class ImageWriter:
 
     def put(self, name: str, arr) -> None:
         t = self.layout.tensors[name]
-        raw = np.ascontiguousarray(np.asarray(arr)).view(np.uint8).reshape(-1)
+        raw = leaf_bytes(arr)
         assert raw.nbytes == t.nbytes, (name, raw.nbytes, t.nbytes)
         self.buf[t.offset:t.offset + t.nbytes] = raw
 
@@ -146,8 +210,7 @@ class StreamingImageWriter:
             assert t.name == name, (
                 f"stream order {name!r} != layout order {t.name!r}")
             assert t.offset == next_idx * cs, (name, t.offset, next_idx)
-            raw = np.ascontiguousarray(
-                np.asarray(leaf)).view(np.uint8).reshape(-1)
+            raw = leaf_bytes(leaf)
             assert raw.nbytes == t.nbytes, (name, raw.nbytes, t.nbytes)
             nchunks = (_align(t.nbytes, cs) // cs) or 0
             for c in range(nchunks):
@@ -170,11 +233,12 @@ class StreamingImageWriter:
             next_idx += 1
 
 
-def read_tensor(layout: ImageLayout, name: str, read_fn) -> np.ndarray:
-    """Materialize one tensor via ``read_fn(offset, length) -> bytes``."""
+def read_tensor(layout: ImageLayout, name: str, read_fn):
+    """Materialize one tensor via ``read_fn(offset, length) -> bytes``
+    (``array_from_bytes``: a bfloat16 tensor comes back as a torch
+    tensor)."""
     t = layout.tensors[name]
-    raw = read_fn(t.offset, t.nbytes)
-    return np.frombuffer(raw, dtype=np.dtype(t.dtype)).reshape(t.shape)
+    return array_from_bytes(read_fn(t.offset, t.nbytes), t.dtype, t.shape)
 
 
 # ------------------------------------------------------- shard-aware ranges

@@ -51,6 +51,7 @@ from repro_torch.core.layout import (
     StreamingImageWriter,
     build_layout,
     canonical_paths,
+    leaf_bytes,
 )
 from repro_torch.core.manifest import ZERO_CHUNK, ChunkRef, Manifest, seal
 from repro_torch.core.telemetry import COUNTERS
@@ -83,8 +84,7 @@ def image_id_for(tree) -> str:
     h = hashlib.sha256()
     for name, leaf in canonical_paths(tree):
         h.update(name.encode())
-        h.update(np.ascontiguousarray(np.asarray(leaf)).view(np.uint8)
-                 .tobytes())
+        h.update(leaf_bytes(leaf).tobytes())
     return h.hexdigest()[:32]
 
 

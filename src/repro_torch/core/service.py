@@ -59,6 +59,7 @@ from repro_torch.core.decode import (
 from repro_torch.core.layout import (
     CHUNK_SIZE,
     ImageLayout,
+    array_from_bytes,
     ranges_to_chunks,
     read_tensor,
     shard_byte_ranges,
@@ -549,7 +550,7 @@ class ImageHandle:
             else:
                 ranges = shard_byte_ranges(t, sl)
                 shape = tuple(e - s for s, e in sl)
-            plan.append((name, ranges, shape, np.dtype(t.dtype)))
+            plan.append((name, ranges, shape, t.dtype))
             all_ranges.extend(ranges)
         if p.mode == "serial":
             bufs = iter([self.reader.read(off, ln) for off, ln in all_ranges])
@@ -561,7 +562,7 @@ class ImageHandle:
         out = {}
         for name, ranges, shape, dt in plan:
             raw = b"".join(next(bufs) for _ in ranges)
-            out[name] = np.frombuffer(raw, dt).reshape(shape)
+            out[name] = array_from_bytes(raw, dt, shape)
         return out
 
     def tensor_shard(self, name: str, dim_slices: list,

@@ -8,7 +8,17 @@ package computes this function in jnp, outside any Pallas kernel, so no
 hand-written kernel is owed); on a CPU tensor it is
 ``flash_attn_plain``, the JAX package's blocked online softmax step by
 step, which the tests hold against the JAX function and
-``chip_smoke.py`` holds the card route against."""
+``chip_smoke.py`` holds the card route against.
+
+Both routes carry gradients for training: on the card
+``scaled_dot_product_attention``'s own backward on the float32 copies,
+on the CPU autograd through the plain blocked version. The JAX
+package's ``flash_attn_vjp`` (its ``flash_vjp`` flag) is a jnp custom
+VJP that recomputes the score blocks in the backward pass instead of
+storing them: it computes the same function and the same gradients as
+autograd through ``flash_attn``, so the port accepts the flag and takes
+this one path for both settings (no Pallas kernel is behind it, so no
+backward kernel is owed)."""
 from __future__ import annotations
 
 import math
@@ -46,12 +56,20 @@ def attn_mask(sq: int, skv: int, *, causal: bool, q_offset: int,
 
 def flash_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      causal: bool = True, q_offset: int = 0, window: int = 0,
-                     q_block: int = 512, kv_block: int = 1024) -> torch.Tensor:
+                     q_block: int = 512, kv_block: int = 1024,
+                     skip_masked_blocks: bool = False) -> torch.Tensor:
     """The blocked streaming softmax of the JAX ``flash_attn``: for each
     block of queries, a running max, sum and output over blocks of keys,
     all in float32; blocks are the largest divisors of Sq and Skv under
     `q_block` and `kv_block`. q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv,
-    hd), Hq % Hkv == 0. Returns (B, Sq, Hq, hd) in q.dtype."""
+    hd), Hq % Hkv == 0. Returns (B, Sq, Hq, hd) in q.dtype.
+    `skip_masked_blocks` (plain causal attention only, as in the JAX
+    function) stops each query block's loop at the last key block that
+    meets its causal region: the blocks skipped add exact zeros, so the
+    result is the same. (The JAX function stops at the key block that
+    holds the query block's FIRST row, which drops keys that its later
+    rows see when the block crosses a key-block boundary, e.g. S = 1536
+    with the default blocks; ROADMAP.md §3.)"""
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -63,13 +81,16 @@ def flash_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vs = v.float().permute(0, 2, 1, 3)
     mask = attn_mask(Sq, Skv, causal=causal, q_offset=q_offset,
                      window=window, device=q.device)
+    skip = skip_masked_blocks and causal and not window and q_offset == 0 \
+        and Sq == Skv
     outs = []
     for i in range(0, Sq, qb):
         qblk = qs[:, :, :, i:i + qb]
         m = torch.full((B, Hkv, G, qb), NEG_INF, device=q.device)
         l = torch.zeros((B, Hkv, G, qb), device=q.device)
         o = torch.zeros((B, Hkv, G, qb, hd), device=q.device)
-        for j in range(0, Skv, kb):
+        kv_end = min(Skv, ((i + qb - 1) // kb + 1) * kb) if skip else Skv
+        for j in range(0, kv_end, kb):
             s = torch.einsum("bhgqd,bhkd->bhgqk", qblk,
                              ks[:, :, j:j + kb]) * scale
             if mask is not None:
@@ -88,16 +109,19 @@ def flash_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool = True, q_offset: int = 0, window: int = 0,
-               q_block: int = 512, kv_block: int = 1024) -> torch.Tensor:
+               q_block: int = 512, kv_block: int = 1024,
+               skip_masked_blocks: bool = False) -> torch.Tensor:
     """GQA attention over a whole sequence, the JAX ``flash_attn``'s
     signature and result (module doc). On the card one
     ``scaled_dot_product_attention`` (``is_causal`` when the mask is
-    plain causal, else an explicit causal+window mask; the blocks do not
-    apply); on the CPU ``flash_attn_plain``."""
+    plain causal, else an explicit causal+window mask; the blocks and
+    `skip_masked_blocks` do not apply: its kernels skip masked blocks
+    themselves); on the CPU ``flash_attn_plain``."""
     if q.device.type == "cpu":
         return flash_attn_plain(q, k, v, causal=causal, q_offset=q_offset,
                                 window=window, q_block=q_block,
-                                kv_block=kv_block)
+                                kv_block=kv_block,
+                                skip_masked_blocks=skip_masked_blocks)
     return flash_attn_sdpa(q, k, v, causal=causal, q_offset=q_offset,
                            window=window)
 

@@ -1,5 +1,6 @@
 """Sublayer = (norm -> mixer -> residual) [+ (norm -> ffn -> residual)]
-in prefill and decode mode (the port of ``repro.models.blocks``).
+in train, prefill and decode mode (the port of
+``repro.models.blocks``).
 
 A ``SubDef`` names the mixer (``attn`` or ``mamba``; the JAX package's
 ``cross_attn``, ``mlstm`` and ``slstm`` come with their families), the
@@ -65,13 +66,11 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, dtype,
     return _proj(p, o.reshape(B, cfg.q_dim), "o", dtype, cfg)
 
 
-def attn_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, dtype,
-                 cache: dict, positions: torch.Tensor,
-                 causal: bool = True) -> torch.Tensor:
+def attn_seq(p: dict, x: torch.Tensor, cfg: ModelConfig, dtype,
+             positions: torch.Tensor, causal: bool = True,
+             skip_blocks: bool = False) -> tuple:
     """x: (B, S, D) at `positions` (S,). Attention over the whole
-    sequence (causal and sliding-window as configured); the cache k/v
-    (B, Smax, Hkv, hd) are overwritten IN PLACE with rows [0, S) and
-    zeros after, as the JAX package's new cache holds."""
+    sequence (causal and sliding-window as configured): (out, k, v)."""
     B, S, _ = x.shape
     q = _proj(p, x, "q", dtype, cfg).reshape(B, S, cfg.num_heads,
                                              cfg.head_dim)
@@ -82,12 +81,23 @@ def attn_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, dtype,
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attn(q, k, v, causal=causal, window=cfg.sliding_window)
+    o = flash_attn(q, k, v, causal=causal, window=cfg.sliding_window,
+                   skip_masked_blocks=skip_blocks)
+    return _proj(p, o.reshape(B, S, cfg.q_dim), "o", dtype, cfg), k, v
+
+
+def attn_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, dtype,
+                 cache: dict, positions: torch.Tensor,
+                 causal: bool = True) -> torch.Tensor:
+    """``attn_seq``'s output; the cache k/v (B, Smax, Hkv, hd) are
+    overwritten IN PLACE with rows [0, S) and zeros after, as the JAX
+    package's new cache holds."""
+    out, k, v = attn_seq(p, x, cfg, dtype, positions, causal)
     for name, new in (("k", k), ("v", v)):
         c = cache[name]
         c.zero_()
-        c[:, :S] = new.to(c.dtype)
-    return _proj(p, o.reshape(B, S, cfg.q_dim), "o", dtype, cfg)
+        c[:, :x.shape[1]] = new.to(c.dtype)
+    return out
 
 
 def sublayer_decode_state(cfg: ModelConfig, sd: SubDef, batch: int,
@@ -128,31 +138,38 @@ def _apply_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, sd: SubDef,
 
 def sublayer_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, sd: SubDef,
                    dtype, *, mode: str, positions=None, pos=None,
-                   state=None) -> tuple:
-    """Returns (x, new_state). mode ``prefill``: x (B, S, D) at
-    `positions`, the state filled from the sequence; mode ``decode``:
-    x (B, D), one token at `pos` (B,). An attention cache is updated in
-    place (new_state is `state`); a Mamba state comes back as new
-    tensors, as the JAX package returns it. The JAX package's ``train``
-    and ``encode`` modes come with training (queue item 5)."""
-    if mode not in ("prefill", "decode"):
+                   state=None, skip_blocks: bool = False) -> tuple:
+    """Returns (x, new_state). mode ``train``: x (B, S, D) at
+    `positions`, stateless (new_state None), differentiable;
+    ``prefill``: the same forward, the state filled from the sequence;
+    ``decode``: x (B, D), one token at `pos` (B,). An attention cache is
+    updated in place (new_state is `state`); a Mamba state comes back as
+    new tensors, as the JAX package returns it. `skip_blocks` is
+    ``RunFlags.skip_masked_blocks`` (train mode). The JAX package's
+    ``encode`` mode comes with the encoder-decoder family (item 4b)."""
+    if mode not in ("train", "prefill", "decode"):
         raise NotImplementedError(f"mode {mode!r} is not ported: ROADMAP.md "
-                                  "queue 1, item 5 (training)")
+                                  "queue 1, item 4b")
     h = apply_norm(p["norm1"], x, cfg.norm_type, cfg.norm_eps)
     new_state = state
     if sd.mixer == "attn":
         if mode == "decode":
             y = attn_decode(p["mixer"], h, cfg, dtype, state, pos)
-        else:
+        elif mode == "prefill":
             y = attn_prefill(p["mixer"], h, cfg, dtype, state, positions,
                              causal=sd.causal)
+        else:
+            y = attn_seq(p["mixer"], h, cfg, dtype, positions,
+                         causal=sd.causal, skip_blocks=skip_blocks)[0]
     elif sd.mixer == "mamba":
         if mode == "decode":
             y, new_state = mamba_mod.mamba_decode(p["mixer"], h, state, cfg,
                                                   dtype)
-        else:
+        elif mode == "prefill":
             y, new_state = mamba_mod.mamba_apply(p["mixer"], h, cfg, dtype,
                                                  return_state=True)
+        else:
+            y = mamba_mod.mamba_apply(p["mixer"], h, cfg, dtype)
     else:
         unported_mixer(sd)
     x = x + y

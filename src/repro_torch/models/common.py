@@ -48,3 +48,59 @@ def pad_vocab(vocab: int, multiple: int = 256) -> int:
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
     return table.to(dtype)[tokens]
+
+
+# ---------------------------------------------------------------- losses
+
+def _mask_padded(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Add -1e9 to the logits of the padded vocab entries."""
+    pad = logits.shape[-1] - vocab
+    if not pad:
+        return logits
+    mask = torch.cat([torch.zeros(vocab, device=logits.device),
+                      torch.full((pad,), -1e9, device=logits.device)])
+    return logits + mask
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """Mean token cross-entropy in float32; logits may be vocab-padded
+    (the padded entries masked with -1e9)."""
+    logits = _mask_padded(logits.float(), vocab)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()
+
+
+def _chunk_xent_sum(xc: torch.Tensor, embed_t: torch.Tensor,
+                    lc: torch.Tensor, vocab: int) -> torch.Tensor:
+    logits = _mask_padded(xc.float() @ embed_t.float().T, vocab)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return (logz - gold).sum()
+
+
+def chunked_softmax_xent(x: torch.Tensor, embed_t: torch.Tensor,
+                         labels: torch.Tensor, vocab: int,
+                         chunk: int = 512) -> torch.Tensor:
+    """``softmax_xent`` of ``x @ embed_t.T`` without the full (B, S, V)
+    logits: S // `chunk` sequence chunks in order, their float32 sums
+    added from zero (the JAX ``lax.scan``'s order), each chunk's logits
+    recomputed in the backward pass (``torch.utils.checkpoint``) rather
+    than kept. x: (B, S, D) final hidden; embed_t: (V, D) output
+    embedding. S must be a multiple of `chunk`, as the JAX reshape
+    demands; any other S raises ``ValueError``."""
+    from torch.utils.checkpoint import checkpoint
+
+    B, S, D = x.shape
+    if S % chunk:
+        raise ValueError(f"chunked_softmax_xent: sequence length {S} is not "
+                         f"a multiple of the loss chunk {chunk}")
+    n = S // chunk
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(_chunk_xent_sum, x[:, sl], embed_t,
+                                   labels[:, sl], vocab,
+                                   use_reentrant=False)
+    return total / (B * S)

@@ -22,6 +22,13 @@ float32: norm ``scale``/``bias`` (norms run in float32) and Mamba's
 and ``conv_b`` and the MoE ``router`` are all read through
 ``astype(dtype)``, so they take the working dtype.
 
+Training. ``loss(params, batch)`` runs every layer in train mode over
+a nested params tree of this layout (float32 master weights that
+require grad, cast to the working dtype at each use, as the JAX package
+does), each layer under the ``RunFlags.remat`` policy, and returns the
+float32 mean cross-entropy; ``load_flat``, ``prefill`` and
+``decode_step`` hold weights of their own and take no gradients.
+
 Decode state. KV caches and Mamba conv windows are made in the
 ``init_decode_state`` dtype (bfloat16 by default, whatever the working
 dtype), SSM states in float32. Caches and SSM states are updated in
@@ -46,7 +53,13 @@ from repro_torch.models.blocks import (
     sublayer_decode_state,
     unported_mixer,
 )
-from repro_torch.models.common import apply_norm, embed_lookup, pad_vocab
+from repro_torch.models.common import (
+    apply_norm,
+    chunked_softmax_xent,
+    embed_lookup,
+    pad_vocab,
+    softmax_xent,
+)
 from repro_torch.models.mamba import d_inner, dt_rank
 from repro_torch.train.checkpoint import LeafSpec
 
@@ -57,8 +70,34 @@ LATER_FAMILIES = ("ssm", "encdec", "vlm")
 
 @dataclass(frozen=True)
 class RunFlags:
-    """``dtype``: the working dtype, ``"bfloat16"`` or ``"float32"``."""
+    """The JAX package's knobs. ``dtype``: the working dtype,
+    ``"bfloat16"`` or ``"float32"``. The rest shape training
+    (``DecoderLM.loss``) and compute the same function whatever their
+    values: ``remat`` recomputes each layer's activations in the
+    backward pass (``full``: all of them, ``dots``: all but the matmul
+    outputs, ``none``: keeps everything); ``skip_masked_blocks`` skips
+    the causally dead key blocks of the CPU's blocked attention;
+    ``chunked_loss`` (0 or a sequence chunk) computes the loss without
+    the full logits; ``flash_vjp`` is accepted and takes the one
+    attention backward the port has (``models.attention``'s doc).
+    ``moe_impl="shard_map"`` needs an expert-parallel mesh, which waits
+    for ``sharding/``: it raises."""
     dtype: str = "bfloat16"
+    remat: str = "full"              # full | dots | none
+    skip_masked_blocks: bool = False
+    chunked_loss: int = 0            # 0 = dense logits; else seq-chunk size
+    flash_vjp: bool = False
+    moe_impl: str = "sort"           # sort (shard_map: ROADMAP.md item 6)
+
+    def __post_init__(self):
+        if self.remat not in ("full", "dots", "none"):
+            raise ValueError(f"remat {self.remat!r}: full | dots | none")
+        if self.moe_impl == "shard_map":
+            raise NotImplementedError(
+                "moe_impl='shard_map' (expert-parallel all-to-all) needs "
+                "sharding/: ROADMAP.md queue 1, item 6")
+        if self.moe_impl != "sort":
+            raise ValueError(f"moe_impl {self.moe_impl!r}")
 
 
 def layout(cfg: ModelConfig) -> list:
@@ -258,6 +297,34 @@ def _index(tree, r: int):
     return tree[r]
 
 
+def _unstack(tree, R: int) -> list:
+    """R per-layer trees of a group's stacked leaves, by one ``unbind``
+    per leaf (whose backward stacks the layers' gradients once, where
+    indexing each layer would add a full-size gradient per layer)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, R) for k, v in tree.items()}
+        return [{k: per[k][r] for k in per} for r in range(R)]
+    return tree.unbind(0)
+
+
+def _dots_policy():
+    """``remat="dots"``: a selective checkpoint that saves the outputs
+    of 2-D matmuls (the JAX ``dots_with_no_batch_dims_saveable``: a
+    weight product of (B, S, D) activations folds to one) and recomputes
+    everything else, batched attention products included."""
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+    )
+    saved = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
 class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, flags: RunFlags = RunFlags(),
                  device="cuda"):
@@ -358,6 +425,53 @@ class DecoderLM(nn.Module):
                         for k, v in new.items():
                             st[k][r].copy_(v)
         return x
+
+    def _run_train(self, params: dict, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+        """Every layer in train mode, each under the ``remat`` policy."""
+        from torch.utils.checkpoint import checkpoint
+
+        cfg, dtype, flags = self.cfg, self.dtype, self.flags
+        for gi, (R, subs) in enumerate(self.layout):
+            for pl in _unstack(params[f"g{gi}"], R):
+                def run(h, pl=pl, subs=subs):
+                    for j, sd in enumerate(subs):
+                        h, _ = sublayer_apply(
+                            pl[f"s{j}"], h, cfg, sd, dtype, mode="train",
+                            positions=positions,
+                            skip_blocks=flags.skip_masked_blocks)
+                    return h
+                if flags.remat == "none":
+                    x = run(x)
+                elif flags.remat == "full":
+                    x = checkpoint(run, x, use_reentrant=False)
+                else:
+                    x = checkpoint(run, x, use_reentrant=False,
+                                   context_fn=_dots_policy)
+        return x
+
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` (both (B, S)), a float32 scalar, as the JAX
+        ``DecoderLM.loss``. `params` is a nested tree of the JAX
+        package's layout (``param_specs``), typically float32 master
+        weights that require grad; every use casts to the working dtype,
+        so their gradients come out in their own dtype (float32), as
+        ``jax.value_and_grad``'s do. Layers run under ``flags.remat``;
+        ``flags.chunked_loss`` selects ``chunked_softmax_xent``."""
+        cfg, flags, dtype = self.cfg, self.flags, self.dtype
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device)
+        labels = torch.as_tensor(batch["labels"]).to(self.device)
+        x = embed_lookup(params["embed"], tokens, dtype)
+        positions = torch.arange(tokens.shape[1], device=self.device)
+        x = self._run_train(params, x, positions)
+        x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        if flags.chunked_loss:
+            return chunked_softmax_xent(x, table.to(dtype), labels,
+                                        cfg.vocab_size, flags.chunked_loss)
+        logits = x @ table.to(dtype).T
+        return softmax_xent(logits, labels, cfg.vocab_size)
 
     @torch.no_grad()
     def prefill(self, batch: dict, state: dict) -> tuple:

@@ -5,7 +5,9 @@ decode state, and the one-token decode step.
 The JAX package scans the sequence in checkpointed chunks; the chunks
 only group steps for the backward pass, and the forward is the plain
 recurrence, so the port runs one loop over steps and accepts ``chunk``
-without using it.
+without using it. In training, autograd keeps each step's state for the
+backward pass (the JAX package recomputes them chunk by chunk): the
+same gradients, more memory.
 
 Decode state: a (d_conv - 1)-row window of the conv's inputs and the
 (d_inner, d_state) SSM state, float32. After a prefill of S < d_conv - 1

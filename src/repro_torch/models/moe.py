@@ -20,6 +20,13 @@ fixed order, so that two runs on the card give the same bits (CUDA's
   ascending expert order, starting from zero: the order in which the
   JAX scatter visits them (its updates come sorted by expert).
 
+The dispatch is differentiable, and its backward pass keeps the fixed
+order: a token's gradient is the sum of its K slots' gradients, added
+in ascending expert order from zero (``_Dispatch``), where autograd
+through the copy would scatter-add them with atomics on the card. The
+combine's backward writes each kept slot's gradient to its own row.
+Routing indices carry no gradient; the gates do, as in the JAX package.
+
 ``top_k`` breaks ties by the lower index first, as ``jax.lax.top_k``
 does (``torch.topk`` does not promise an order among ties)."""
 from __future__ import annotations
@@ -74,6 +81,35 @@ def route(p: dict, xf: torch.Tensor, cfg: ModelConfig,
     return gates, experts
 
 
+def _sum_slots(rows: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """(T, D): for each token the sum of ``rows[slots[t, j]]`` over j in
+    order, from zero; slot index ``len(rows)`` reads a zero row."""
+    ext = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
+    y = rows.new_zeros((slots.shape[0], rows.shape[1]))
+    for j in range(slots.shape[1]):
+        y = y + ext[slots[:, j]]
+    return y
+
+
+class _Dispatch(torch.autograd.Function):
+    """buf[dst] = xf[src] into an (n, D) zero buffer; the backward sums
+    each token's slot gradients in a fixed order (``_sum_slots`` over
+    `slots`, each token's K buffer rows in expert order, ``n`` for a
+    dropped assignment)."""
+
+    @staticmethod
+    def forward(ctx, xf, src, dst, slots, n: int):
+        ctx.save_for_backward(slots)
+        buf = xf.new_zeros((n, xf.shape[1]))
+        buf[dst] = xf[src]
+        return buf
+
+    @staticmethod
+    def backward(ctx, grad_buf):
+        (slots,) = ctx.saved_tensors
+        return _sum_slots(grad_buf, slots), None, None, None, None
+
+
 def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
               dtype: torch.dtype) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D) (module doc)."""
@@ -94,17 +130,19 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     token_of = order // K
     buf_idx = sorted_e * cap + slot
 
+    # group by token; a stable sort keeps each token's K in expert order
+    by_token = torch.argsort(token_of, stable=True)
+
     # dispatch: one token per kept slot
-    buf = torch.zeros((E * cap, D), dtype=dtype, device=x.device)
-    buf[buf_idx[keep]] = xf[token_of[keep]].to(dtype)
+    slots = torch.where(keep, buf_idx, E * cap)[by_token].view(T, K)
+    buf = _Dispatch.apply(xf.to(dtype), token_of[keep], buf_idx[keep],
+                          slots, E * cap)
     out_flat = expert_ffn(p, buf.view(E, cap, D), cfg.mlp_type,
                           dtype).reshape(E * cap, D)
 
     # combine: dropped slots gather row 0 with weight 0
     gathered = out_flat[torch.where(keep, buf_idx, 0)]
     w = (gates.reshape(T * K)[order] * keep).to(dtype)
-    # group by token; a stable sort keeps each token's K in expert order
-    by_token = torch.argsort(token_of, stable=True)
     contrib = (gathered * w[:, None])[by_token].view(T, K, D)
     y = torch.zeros((T, D), dtype=dtype, device=x.device)
     for j in range(K):
@@ -115,3 +153,15 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if cfg.dense_residual:
         y = y + mlp_apply(p["residual"], xf, cfg.mlp_type, dtype)
     return y.reshape(B, S, D)
+
+
+def aux_load_balance_loss(logits: torch.Tensor, experts: torch.Tensor,
+                          num_experts: int, k: int) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss (mean over tokens):
+    E * sum_e(mean router probability of e * share of the K assignments
+    that went to e)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    me = probs.mean(dim=0)                                          # (E,)
+    ce = F.one_hot(experts.long(), num_experts).float().sum(dim=1) \
+        .mean(dim=0) / k
+    return num_experts * (me * ce).sum()

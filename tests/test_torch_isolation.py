@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of ``repro_torch``
-loads neither jax nor any module of the JAX package, and its entry
-points refuse to run on the CPU unless asked to."""
+loads neither jax, nor any module of the JAX package, nor ``ml_dtypes``
+(which gives numpy a bfloat16: the port writes and reads bfloat16
+leaves without it, as a fresh interpreter shows), and its entry points
+refuse to run on the CPU unless asked to."""
 import json
 import os
 import subprocess
@@ -21,7 +23,7 @@ mods = sorted(m.name for m in pkgutil.walk_packages(
 for m in mods:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
              or m == "repro" or m.startswith("repro."))
 print(json.dumps({"modules": mods, "bad": bad}))
 """
@@ -49,8 +51,41 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.models.blocks",
               "repro_torch.configs.arctic_480b",
               "repro_torch.configs.kimi_k2_1t",
-              "repro_torch.configs.jamba_52b"):
+              "repro_torch.configs.jamba_52b",
+              "repro_torch.train.checkpoint", "repro_torch.train.optimizer",
+              "repro_torch.train.step", "repro_torch.train.loop",
+              "repro_torch.train.elastic", "repro_torch.data.synthetic",
+              "repro_torch.launch.variants", "repro_torch.launch.train"):
         assert m in res["modules"]
+
+
+_BF16_PROBE = r"""
+import sys, tempfile, torch
+from repro_torch.core.service import ImageService, ServiceConfig
+from repro_torch.core.store import ChunkStore
+from repro_torch.core.manifest import open_manifest
+t = torch.linspace(-3, 3, 1000).to(torch.bfloat16).reshape(10, 100)
+svc = ImageService(ChunkStore(tempfile.mkdtemp()), ServiceConfig(
+    device="cpu", decode_backend="python", root="R1"))
+blob, _ = svc.publish({"m": t, "s": t[0, 0]}, tenant="t",
+                      tenant_key=b"K" * 32, chunk_size=4096)
+h = svc.open(blob, b"K" * 32)
+got = h.restore_tree()
+assert {r[0]: r[3] for r in open_manifest(blob, b"K" * 32).layout_table} \
+    == {"m": "bfloat16", "s": "bfloat16"}
+assert got["m"].dtype == torch.bfloat16 and torch.equal(got["m"], t)
+assert torch.equal(got["s"], t[0, 0]) and torch.equal(h.tensor("m"), t)
+assert "ml_dtypes" not in sys.modules and "jax" not in sys.modules
+print("ok")
+"""
+
+
+def test_bfloat16_images_need_no_ml_dtypes():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _BF16_PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_entry_points_default_to_cuda():

@@ -5,12 +5,13 @@ path, every flag group in one run, and ``build_model``'s families. The
 launcher's greedy tokens must equal a ``ServeEngine`` over the same
 ``init_flat`` weights loaded directly."""
 import argparse
-import ast
 from pathlib import Path
 
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from _torch_launch import reference_flags  # noqa: E402
 
 from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
@@ -32,21 +33,7 @@ CPU = ["--device", "cpu", "--decode-backend", "python"]
 def _reference_flags() -> dict:
     """{flag: (default, action)} of every ``add_argument`` in the JAX
     launcher's source."""
-    out = {}
-    for node in ast.walk(ast.parse(REF.read_text())):
-        if isinstance(node, ast.Call) and \
-                getattr(node.func, "attr", None) == "add_argument":
-            kw = {k.arg: k.value for k in node.keywords}
-            default = eval(compile(ast.Expression(kw["default"]), "", "eval"),
-                           {}) if "default" in kw else None
-            if kw.get("action") is not None:
-                action = ast.literal_eval(kw["action"])
-                if action == "store_true" and "default" not in kw:
-                    default = False
-            else:
-                action = None
-            out[node.args[0].value] = (default, action)
-    return out
+    return reference_flags(REF)
 
 
 def test_flags_match_the_reference():
