@@ -171,8 +171,46 @@ Phases (any failure exits non-zero):
    "--reduced", "--steps", "4", "--ckpt-every", "2", "--variant",
    "opt8bit", "--store", ...])``, then the same with ``--resume``,
    which must start at step 4; both must print the reference's lines.
+10. the xLSTM, encoder-decoder and VLM families. (a) xlstm-350m at
+   published width and full depth (24 layers as 12 mLSTM/sLSTM pairs,
+   d_model 1024, 4 heads, vocab 50304 padded to 50432, untied; ~427.7 M
+   parameters) from ``init_flat`` on the host (``--seed``): its
+   float32 tree is published through an ``ImageService`` (SHA-256 and
+   AES kernels) and cold-started through a second service with an
+   empty L1 (fused kernel); every tensor must be byte-identical to the
+   published tree (per-tensor SHA-256), and a bfloat16 ``ServeEngine``
+   serves 8 requests of 8-token prompts and 16 new tokens at batch 4
+   with the tokens of the same weights loaded directly. Then a prefill
+   of 4 x 256 tokens in float32 against decoding the same prompts:
+   greedy tokens equal, last logits and the final C/n/m/h/c/conv states
+   within ``PREFILL_BF16_TOL`` of their max. (b) whisper-base at
+   published width and full depth (6 + 6 layers, d_model 512, 8 heads,
+   biases, layernorm, sinusoidal positions, vocab 51865 padded to
+   51968; ~97.3 M parameters), published and cold-started as in (a),
+   its engine serving 8 requests against the zero cross k/v, as the
+   reference's does; then ``EncDecModel.prefill`` over 4 x 1500 frames
+   (``encoder_seq``, drawn by ``global_batch`` at 0.1 scale) and 16
+   greedy ``decode_step``s against the built cross k/v; then, in
+   float32, a train-mode loss of 448 decoder tokens against the 1500
+   frames with the card route of ``flash_attn`` held against its plain
+   version at every call (``FLASH_F32_TOL``): the encoder's non-causal
+   1500 x 1500, the decoder's causal 448 x 448 and the cross 448 x
+   1500. (c) pixtral-12b at published width and all 40 layers (d_model
+   5120, 32/8 heads of 128, d_ff 14336, vocab 131072; ~12.25 B
+   parameters, 24.5 GB bfloat16 drawn on the card from ``--seed`` with
+   ``init_device``, no image): a prefill of 4 x (256 patches + 256
+   tokens) and 16 greedy decode steps, twice, with identical bits; in
+   float32, cut to 4 layers, that prefill against a prefill of patches
+   + 248 tokens and 8 decode steps (greedy tokens equal, logits within
+   ``PREFILL_BF16_TOL``). (d) ``repro_torch.launch.train.main(["--arch",
+   A, "--reduced", "--steps", "2", "--ckpt-every", "2", "--store",
+   ...])`` and its ``--resume`` (which must start at step 2) for each
+   of the three archs, and ``repro_torch.launch.serve.main(["--arch",
+   "whisper-base", "--publish"])``, which must serve every request.
+   Every time printed in phase 10 carries the card's name and power
+   limit.
 
-The last lines are the launch counts of phases 3 to 9, the kernel
+The last lines are the launch counts of phases 3 to 10, the kernel
 table (``{"kernels": [...]}``, each kernel's launches counted on the path
 that runs it, and on every path in ``launches_by_phase``), the
 ``nvidia-smi`` name/power-limit line and
@@ -349,7 +387,21 @@ PATH_KERNELS = {3: ("fused_verify_decrypt", "sha256_many",
                 8: ("fused_verify_decrypt", "sha256_many",
                     "aes_encrypt_many"),
                 9: ("sha256_many", "aes_encrypt_many",
-                    "fused_verify_decrypt")}
+                    "fused_verify_decrypt"),
+                10: ("sha256_many", "aes_encrypt_many",
+                     "fused_verify_decrypt")}
+# phase 10: the xLSTM, encoder-decoder and VLM families. xlstm-350m and
+# whisper-base serve FAMILY_REQUESTS requests of PHASE10_NEW new tokens
+# at batch FAMILY_BATCH; whisper-base decodes PHASE10_NEW greedy steps
+# after its prefill, and its float32 loss runs over WHISPER_TARGET
+# decoder tokens (Whisper's target length) against encoder_seq frames;
+# pixtral-12b prefills PREFILL_PROMPTS x (256 patches + PIXTRAL_TEXT
+# tokens), and its float32 check keeps PIXTRAL_F32_LAYERS of 40 layers
+PHASE10_NEW = 16
+WHISPER_TARGET = 448
+PIXTRAL_TEXT = 256
+PIXTRAL_F32_LAYERS = 4
+PHASE10_ARCHS = ("xlstm-350m", "whisper-base", "pixtral-12b")
 # phase 5: the storm's workers (worker STORM_WORKERS idles until the
 # poisoned-copy restore). Every worker asks for the image's chunks in
 # the same order, so the first to probe leads nearly every flight (on
@@ -2666,6 +2718,432 @@ def phase_train_resume(seed: int, kernels, work: Path) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 10
+
+def publish_and_cold_start(cfg, flat: dict, seed: int, kernels,
+                           store_dir: Path, card: str) -> tuple:
+    """10a/b: `flat` published through one service (SHA-256, AES), then
+    cold-started through a second one with an empty L1 (fused kernel);
+    every restored tensor byte-identical (per-tensor SHA-256); the
+    cold-started bfloat16 engine serves FAMILY_REQUESTS requests of
+    8-token prompts and PHASE10_NEW new tokens at batch FAMILY_BATCH
+    with the tokens of the same weights loaded directly. Returns (the
+    stats with the launches, the cold-started model)."""
+    import torch
+
+    from repro_torch.core.service import ImageService, ServiceConfig
+    from repro_torch.core.store import ChunkStore
+    from repro_torch.models import build_model
+    from repro_torch.serve.coldstart import cold_start
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    want = tree_digests(flat)
+    key = hashlib.sha256(f"{cfg.name} tenant key".encode()).digest()
+    store = ChunkStore(store_dir)
+
+    def service():
+        return ImageService(store, ServiceConfig(device="cuda", root="r0",
+                                                 max_batch_bytes=TILE))
+
+    out = {"params": sum(a.size for a in flat.values())}
+    kernels.reset_launches()
+    pub = service()
+    t0 = time.perf_counter()
+    blob, st = pub.publish(flat, tenant="smoke", tenant_key=key)
+    torch.cuda.synchronize()
+    out["publish_s"] = time.perf_counter() - t0
+    pub.close()
+    out.update(image_bytes=st.bytes_total, chunks=st.total_chunks,
+               unique_chunks=st.unique_chunks)
+    log(f"{cfg.name}: {out['params'] / 1e6:.1f} M params, published "
+        f"{st.bytes_total / 1e9:.3f} GB ({st.total_chunks} chunks) in "
+        f"{out['publish_s']:.2f} s {card}")
+    svc = service()
+    model = build_model(cfg, device="cuda")
+    engine, cs = cold_start(model, blob, key, svc)
+    check(cs["origin_fetches"] >= st.unique_chunks,
+          f"{cfg.name}: the cold start fetched {cs['origin_fetches']} "
+          f"chunks from the origin, fewer than the {st.unique_chunks} stored")
+    check(cs["decode_backend"] == "torch-fused", f"{cfg.name}: the cold "
+          f"start decoded with {cs['decode_backend']}")
+    out["cold_start"] = {k: cs[k] for k in (
+        "load_seconds", "restore_seconds", "fetch_wall_s", "decode_wall_s",
+        "origin_fetches")}
+    restored = svc.open(blob, key).restore_tree()
+    check(tree_digests(restored) == want, f"{cfg.name}: the restored tree "
+          "differs from the published one")
+    out["tensors_identical"] = len(want)
+    del restored
+    out["launches"] = dict(kernels.LAUNCHES)
+    svc.close()
+    log(f"{cfg.name}: cold start {json.dumps(out['cold_start'])}, "
+        f"{len(want)} tensors byte-identical {card}")
+
+    prompts = [rng_prompt(seed + 70 + i, cfg.vocab_size)
+               for i in range(FAMILY_REQUESTS)]
+
+    def serve(eng):
+        reqs = [Request(i, prompt=p, max_new=PHASE10_NEW)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        res = eng.run_until_drained()
+        check(all(r.done and len(r.out) == PHASE10_NEW for r in reqs),
+              f"{cfg.name}: requests did not complete")
+        return [r.out for r in reqs], res
+
+    tokens, res = serve(engine)
+    direct = build_model(cfg, device="cuda").load_flat(flat)
+    check(tokens == serve(ServeEngine(direct, max_batch=FAMILY_BATCH,
+                                      max_len=128))[0],
+          f"{cfg.name}: the cold-started model's tokens differ from the "
+          "directly loaded model's")
+    del direct, engine
+    new = sum(len(t) for t in tokens)
+    out["serve"] = {"requests": len(prompts), "tokens": new,
+                    "steps": res["steps"],
+                    "decode_step_ms": res["seconds"] / res["steps"] * 1e3,
+                    "tokens_per_s": new / res["seconds"],
+                    "first_tokens": tokens[0]}
+    log(f"{cfg.name}: served {len(prompts)} requests at batch "
+        f"{FAMILY_BATCH}, {out['serve']['decode_step_ms']:.3f} ms a decode "
+        f"step, {out['serve']['tokens_per_s']:.1f} tokens/s, tokens equal "
+        f"the directly loaded model's {card}")
+    return out, model
+
+
+def close_states(got: dict, want: dict, tol: float) -> dict:
+    """{name: max |got - want| / max |want|} of two decode-state trees;
+    fails past `tol`."""
+    errs = {}
+    for name, w in want.items():
+        if isinstance(w, dict):
+            errs.update({f"{name}/{k}": v for k, v in
+                         close_states(got[name], w, tol).items()})
+            continue
+        scale = max(w.float().abs().max().item(), 1e-30)
+        errs[name] = (got[name].float() - w.float()).abs().max().item() \
+            / scale
+        check(errs[name] <= tol, f"state {name} differs by {errs[name]} "
+              "of its max")
+    return errs
+
+
+def phase_xlstm(seed: int, kernels, work: Path, card: str) -> dict:
+    """10a: xlstm-350m at published width and full depth (module doc)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM, RunFlags, init_flat
+
+    cfg = get_config("xlstm-350m")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    flat = init_flat(cfg, seed + 80)
+    weights_s = time.perf_counter() - t0
+    out, model = publish_and_cold_start(cfg, flat, seed, kernels,
+                                        work / "xlstm", card)
+    out["weights_s"] = weights_s
+    toks = torch.from_numpy(np.random.default_rng(seed + 81).integers(
+        0, cfg.vocab_size, (PREFILL_PROMPTS, PREFILL_LEN)))
+    model.prefill({"tokens": toks[:, :8]},
+                  model.init_decode_state(PREFILL_PROMPTS, PREFILL_LEN))
+    _, ms = wall_ms(lambda: model.prefill(
+        {"tokens": toks},
+        model.init_decode_state(PREFILL_PROMPTS, PREFILL_LEN)))
+    out["prefill_bf16_ms"] = ms
+    del model
+    # float32: prefill against decoding the same prompts
+    f32 = DecoderLM(cfg, RunFlags(dtype="float32")).load_flat(flat)
+    del flat
+    state = f32.init_decode_state(PREFILL_PROMPTS, PREFILL_LEN,
+                                  torch.float32)
+    (logits, state), ms = wall_ms(lambda: f32.prefill({"tokens": toks},
+                                                      state))
+    out["prefill_f32_ms"] = ms
+    ref = f32.init_decode_state(PREFILL_PROMPTS, PREFILL_LEN, torch.float32)
+    t0 = time.perf_counter()
+    for t in range(PREFILL_LEN):
+        dec, ref = f32.decode_step(ref, toks[:, t],
+                                   torch.full((PREFILL_PROMPTS,), t))
+    torch.cuda.synchronize()
+    out["decode_path_s"] = time.perf_counter() - t0
+    V = cfg.vocab_size
+    a, b = logits[:, :V].float(), dec[:, :V].float()
+    out["max_abs_logit_diff"] = (a - b).abs().max().item()
+    out["max_abs_logit"] = b.abs().max().item()
+    check(torch.equal(a.argmax(-1), b.argmax(-1)), "xlstm-350m: prefill's "
+          "greedy tokens differ from decoding")
+    check(out["max_abs_logit_diff"] <= PREFILL_BF16_TOL
+          * out["max_abs_logit"], "xlstm-350m: prefill's logits differ "
+          f"from decoding: {out['max_abs_logit_diff']}")
+    out["state_rel_err"] = close_states(state, ref, PREFILL_BF16_TOL)
+    out["peak_device_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    del f32, state, ref
+    torch.cuda.empty_cache()
+    log("xlstm-350m:", json.dumps({k: v for k, v in out.items()
+                                   if k != "launches"}), card)
+    return out
+
+
+def phase_whisper(seed: int, kernels, work: Path, card: str) -> dict:
+    """10b: whisper-base at published width and full depth (module
+    doc)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import global_batch
+    from repro_torch.models import RunFlags, blocks, build_model, init_flat
+    from repro_torch.models.attention import flash_attn_plain
+
+    cfg = get_config("whisper-base")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flat = init_flat(cfg, seed + 90)
+    out, model = publish_and_cold_start(cfg, flat, seed, kernels,
+                                        work / "whisper", card)
+    B, S = PREFILL_PROMPTS, cfg.encoder_seq
+    frames = torch.from_numpy(global_batch(cfg, 0, B, S, seed=seed)
+                              ["frames"])
+    model.prefill({"frames": frames}, model.init_decode_state(B, 32))
+    state = model.init_decode_state(B, 32)
+    (logits, state), ms = wall_ms(lambda: model.prefill({"frames": frames},
+                                                        state))
+    out["encoder_ms"] = ms
+    check(state["s1"]["k"].shape == (cfg.num_layers, B, S, cfg.num_kv_heads,
+                                     cfg.head_dim), "whisper-base: the "
+          f"cross k/v has shape {tuple(state['s1']['k'].shape)}")
+    tok = logits[:, :cfg.vocab_size].argmax(-1)
+    greedy = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(PHASE10_NEW):
+        logits, state = model.decode_step(state, tok, torch.full((B,), t))
+        tok = logits[:, :cfg.vocab_size].argmax(-1)
+        greedy.append(tok)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    out["decode_step_ms"] = sec / PHASE10_NEW * 1e3
+    out["decode_tokens_per_s"] = B * PHASE10_NEW / sec
+    out["first_tokens"] = [int(t[0]) for t in greedy]
+    check(bool(torch.isfinite(logits).all()), "whisper-base: decode logits "
+          "are not finite")
+    del model, state
+    # float32: flash_attn's card route against its plain version at every
+    # call of a train-mode loss over WHISPER_TARGET tokens and S frames
+    f32 = build_model(cfg, RunFlags(dtype="float32"),
+                      device="cuda").load_flat(flat)
+    del flat
+    card_flash = blocks.flash_attn
+    calls = []
+
+    def checked(q, k, v, **kw):
+        o = card_flash(q, k, v, **kw)
+        ref = flash_attn_plain(q.float(), k.float(), v.float(), **kw)
+        calls.append({"q": q.shape[1], "kv": k.shape[1],
+                      "causal": kw.get("causal", True),
+                      "err": (o.float() - ref).abs().max().item()})
+        return o
+
+    rng = np.random.default_rng(seed + 91)
+    toks = rng.integers(0, cfg.vocab_size, (B, WHISPER_TARGET + 1))
+    batch = {"frames": frames, "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    blocks.flash_attn = checked
+    try:
+        with torch.no_grad():
+            loss = f32.loss(f32.params, batch)
+    finally:
+        blocks.flash_attn = card_flash
+    kinds = {(c["q"], c["kv"], c["causal"]) for c in calls}
+    check(kinds == {(S, S, False), (WHISPER_TARGET, WHISPER_TARGET, True),
+                    (WHISPER_TARGET, S, False)},
+          f"whisper-base: flash_attn saw shapes {sorted(kinds)}")
+    check(len(calls) == cfg.encoder_layers + 2 * cfg.num_layers,
+          f"whisper-base: flash_attn ran {len(calls)} times")
+    errs = [c["err"] for c in calls]
+    check(max(errs) <= FLASH_F32_TOL, "whisper-base: the card route of "
+          f"flash_attn differs from its plain version: {calls}")
+    check(bool(torch.isfinite(loss)), "whisper-base: the loss is not finite")
+    out["flash_max_abs_err"] = {
+        "encoder_1500x1500": max(c["err"] for c in calls if c["q"] == S),
+        "cross_448x1500": max(c["err"] for c in calls
+                              if c["q"] != c["kv"]),
+        "decoder_self_448": max(c["err"] for c in calls
+                                if c["q"] == c["kv"] == WHISPER_TARGET)}
+    out["loss_f32"] = loss.item()
+    out["peak_device_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    del f32
+    torch.cuda.empty_cache()
+    log("whisper-base:", json.dumps({k: v for k, v in out.items()
+                                     if k != "launches"}), card)
+    return out
+
+
+def pixtral_run(model, batch: dict) -> tuple:
+    """Prefill the patches and tokens of `batch`, then PHASE10_NEW
+    greedy decode steps: (tokens (B, PHASE10_NEW), last logits, prefill
+    ms, decode ms a step)."""
+    import torch
+
+    B, T = batch["tokens"].shape
+    P, V = model.cfg.num_patches, model.cfg.vocab_size
+    state = model.init_decode_state(B, P + T + PHASE10_NEW)
+    (logits, state), prefill_ms = wall_ms(lambda: model.prefill(batch, state))
+    tok = logits[:, :V].argmax(-1)
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(PHASE10_NEW):
+        out.append(tok)
+        logits, state = model.decode_step(state, tok,
+                                          torch.full((B,), P + T + t))
+        tok = logits[:, :V].argmax(-1)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / PHASE10_NEW * 1e3
+    return torch.stack(out, 1), logits, prefill_ms, step_ms
+
+
+def phase_pixtral(seed: int, card: str) -> dict:
+    """10c: pixtral-12b at published width (module doc)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import global_batch
+    from repro_torch.models import DecoderLM, RunFlags
+    from repro_torch.models.lm import init_device
+
+    cfg = get_config("pixtral-12b")
+    P = cfg.num_patches
+    data = global_batch(cfg, 0, PREFILL_PROMPTS, P + PIXTRAL_TEXT, seed=seed)
+    batch = {k: torch.from_numpy(data[k]).cuda()
+             for k in ("tokens", "patches")}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flat, weights_ms = wall_ms(lambda: init_device(cfg, seed, "bfloat16"))
+    weight_bytes = sum(t.numel() * t.element_size() for t in flat.values())
+    model = DecoderLM(cfg, device="cuda").load_flat(flat)
+    del flat
+    runs = [pixtral_run(model, batch) for _ in range(2)]
+    check(torch.equal(runs[0][0], runs[1][0]) and
+          torch.equal(runs[0][1], runs[1][1]), "pixtral-12b: a second run "
+          "gave other tokens or logits")
+    out = {"layers": cfg.num_layers, "weights_GB": weight_bytes / 1e9,
+           "weights_s": weights_ms / 1e3, "prompt": [P, PIXTRAL_TEXT],
+           "prefill_ms": runs[1][2], "decode_step_ms": runs[1][3],
+           "weight_read_floor_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+           "tokens_per_s": PREFILL_PROMPTS * 1e3 / runs[1][3],
+           "first_tokens": runs[1][0][0].tolist(),
+           "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+    check(bool(torch.isfinite(runs[1][1]).all()), "pixtral-12b: decode "
+          "logits are not finite")
+    del model, runs
+    torch.cuda.empty_cache()
+    log(f"pixtral-12b: all {cfg.num_layers} layers at full width, "
+        f"{out['weights_GB']:.2f} GB bfloat16 drawn on the card, "
+        f"prefill {out['prefill_ms']:.2f} ms, decode step "
+        f"{out['decode_step_ms']:.3f} ms against a weight-read floor of "
+        f"{out['weight_read_floor_ms']:.3f} ms, peak "
+        f"{out['peak_device_GB']:.2f} GB {card}")
+
+    # float32, PIXTRAL_F32_LAYERS layers: one prefill of patches + T tokens
+    # against a prefill of patches + T - 8 and 8 decode steps
+    cut = dataclasses.replace(cfg, num_layers=PIXTRAL_F32_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    f32 = DecoderLM(cut, RunFlags(dtype="float32")).load_flat(
+        init_device(cut, seed + 1, "float32"))
+    T, B, V = PIXTRAL_TEXT, PREFILL_PROMPTS, cfg.vocab_size
+    want, _ = f32.prefill(batch, f32.init_decode_state(B, P + T,
+                                                       torch.float32))
+    state = f32.init_decode_state(B, P + T, torch.float32)
+    _, state = f32.prefill({"tokens": batch["tokens"][:, :T - 8],
+                            "patches": batch["patches"]}, state)
+    for t in range(T - 8, T):
+        got, state = f32.decode_step(state, batch["tokens"][:, t],
+                                     torch.full((B,), P + t))
+    a, b = got[:, :V].float(), want[:, :V].float()
+    rec = {"layers": PIXTRAL_F32_LAYERS,
+           "max_abs_logit_diff": (a - b).abs().max().item(),
+           "max_abs_logit": b.abs().max().item(),
+           "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+    check(torch.equal(a.argmax(-1), b.argmax(-1)), "pixtral-12b: prefill "
+          "then decoding gives other greedy tokens than one prefill")
+    check(rec["max_abs_logit_diff"] <= PREFILL_BF16_TOL * rec["max_abs_logit"],
+          f"pixtral-12b: prefill then decoding differs: {rec}")
+    out["prefill_then_decode_f32"] = rec
+    del f32, state
+    torch.cuda.empty_cache()
+    log("pixtral-12b:", json.dumps(out), card)
+    return out
+
+
+def phase_launchers_4b(kernels, work: Path, card: str) -> dict:
+    """10d: the reduced train launcher and its --resume for each of
+    PHASE10_ARCHS, and the whisper-base serve launcher with --publish."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+
+    out = {"train": {}}
+    kernels.reset_launches()
+    for arch in PHASE10_ARCHS:
+        argv = ["--arch", arch, "--reduced", "--steps", "2", "--ckpt-every",
+                "2", "--store", str(work / f"launch-{arch}")]
+        for extra, start in (([], 0), (["--resume"], 2)):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                hist = launch_train.main(argv + extra)
+            torch.cuda.synchronize()
+            text = buf.getvalue().splitlines()
+            check(text[0] == f"training {arch} [baseline] from step {start}",
+                  f"the {arch} launcher printed {text[0]!r}")
+            check(hist[-1]["step"] == start + 2, f"the {arch} launcher "
+                  f"stopped at step {hist[-1]['step']}")
+            out["train"][f"{arch}{' --resume' if start else ''}"] = {
+                "wall_s": time.perf_counter() - t0,
+                "last_loss": hist[-1]["loss"]}
+    launches = dict(kernels.LAUNCHES)
+    res, launches_s, wall = _launch(kernels, ["--arch", "whisper-base",
+                                              "--publish"])
+    check(res["served"] == res["requests"], "the whisper-base launcher "
+          f"served {res['served']} of {res['requests']} requests")
+    out["serve_whisper"] = {"wall_s": wall, "served": res["served"],
+                            "load_seconds": res["cold_start"]["load_seconds"]}
+    out["launches"] = {k: launches[k] + launches_s[k] for k in launches}
+    log("launchers:", json.dumps({k: v for k, v in out.items()
+                                  if k != "launches"}), card)
+    return out
+
+
+def phase_families_4b(seed: int, kernels, work: Path, card: str) -> dict:
+    """Phase 10: (a) xlstm-350m, (b) whisper-base, (c) pixtral-12b, (d)
+    the launchers (module doc)."""
+    t0 = time.perf_counter()
+    xl = phase_xlstm(seed, kernels, work, card)
+    wh = phase_whisper(seed, kernels, work, card)
+    shutil.rmtree(work, ignore_errors=True)
+    px = phase_pixtral(seed, card)
+    la = phase_launchers_4b(kernels, work, card)
+    out = {"xlstm-350m": xl, "whisper-base": wh, "pixtral-12b": px,
+           "launchers": la}
+    out["launches"] = {k: xl["launches"][k] + wh["launches"][k]
+                       + la["launches"][k] for k in la["launches"]}
+    for rec in (xl, wh, la):
+        del rec["launches"]
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 10: {out['phase_s']:.2f} s {card}")
+    return out
+
+
 def rng_prompt(seed: int, vocab: int) -> list:
     import numpy as np
     return [int(t) for t in
@@ -2700,7 +3178,8 @@ def main() -> int:
     work7 = ROOT / "build" / f"smoke-launch-{args.seed}"
     work8 = ROOT / "build" / f"smoke-ep-{args.seed}"
     work9 = ROOT / "build" / f"smoke-train-{args.seed}"
-    for d in (tmp, work, work7, work8, work9):
+    work10 = ROOT / "build" / f"smoke-families-{args.seed}"
+    for d in (tmp, work, work7, work8, work9, work10):
         shutil.rmtree(d, ignore_errors=True)
     try:
         smi_line = phase_toolchain(kernels)
@@ -2728,10 +3207,13 @@ def main() -> int:
         ep = phase_ep_restore(args.seed, kernels, work8)
         shutil.rmtree(work8, ignore_errors=True)
         train = phase_train_resume(args.seed, kernels, work9)
+        shutil.rmtree(work9, ignore_errors=True)
+        card = f"[{smi_line.strip()}]"   # every phase-10 time carries it
+        fam4b = phase_families_4b(args.seed, kernels, work10, card)
         launches = {3: main_path["launches"], 4: l2_path["launches"],
                     5: storm["launches"], 6: gc_roll["launches"],
                     7: launcher["launches"], 8: ep["launches"],
-                    9: train["launches"]}
+                    9: train["launches"], 10: fam4b["launches"]}
         for phase, names in PATH_KERNELS.items():
             for name in names:
                 check(launches[phase][name] > 0, f"kernel {name} was not "
@@ -2740,7 +3222,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        for d in (tmp, work, work7, work8, work9):
+        for d in (tmp, work, work7, work8, work9, work10):
             shutil.rmtree(d, ignore_errors=True)
     table = []
     for name, (src, replaces, phase) in TPU_KERNELS.items():
@@ -2774,6 +3256,8 @@ def main() -> int:
     summary["ep_restore"] = {k: v for k, v in ep.items()
                              if k not in ("launches", "launches_ep")}
     summary["train"] = {k: v for k, v in train.items() if k != "launches"}
+    summary["families_4b"] = {k: v for k, v in fam4b.items()
+                              if k != "launches"}
     summary["smoke_seconds"] = time.perf_counter() - t_all
     log("main path:", json.dumps(summary))
     log(json.dumps({"launches": {f"phase{p}": n

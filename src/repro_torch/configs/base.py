@@ -1,7 +1,6 @@
 """``ModelConfig``: the architecture dataclass (the fields of
-``repro.configs.base`` for the dense, MoE and hybrid families; the
-encoder-decoder and modality fields come with those families), and the
-JAX package's ``ShapeConfig`` cells (``SHAPES``)."""
+``repro.configs.base``), the JAX package's ``ShapeConfig`` cells
+(``SHAPES``) and ``applicable_shapes``."""
 from __future__ import annotations
 
 import dataclasses
@@ -45,11 +44,20 @@ class ModelConfig:
     mlp_type: str = "swiglu"    # swiglu | gelu
     norm_type: str = "rmsnorm"  # rmsnorm | layernorm
     rope_theta: float = 10000.0
-    pos_emb: str = "rope"       # rope | none
+    pos_emb: str = "rope"       # rope | sinusoidal | learned | none
+
+    # --- enc-dec (whisper) ---
+    is_encdec: bool = False
+    encoder_layers: int = 0
+    encoder_seq: int = 1500     # default whisper 30s
+
+    # --- modality frontend stubs ---
+    frontend: str = ""          # "" | audio_stub | vision_stub
+    num_patches: int = 256      # vision_stub: patch tokens prefixed to text
 
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    use_bias: bool = False      # linear-layer biases (starcoder2 style)
+    use_bias: bool = False      # linear-layer biases (starcoder2/whisper style)
     sliding_window: int = 0     # 0 = full attention
 
     def __post_init__(self):
@@ -66,6 +74,11 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """Whether the arch can decode at 500k context (SSM / hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
     def reduced(self, **overrides) -> "ModelConfig":
         """A small config of the same family for CPU tests (the JAX
         package's ``reduced()`` rules)."""
@@ -78,6 +91,7 @@ class ModelConfig:
             d_ff=128,
             dense_d_ff=128 if self.num_experts else 0,
             vocab_size=256,
+            encoder_layers=2 if self.is_encdec else 0,
             num_experts=4 if self.num_experts else 0,
             experts_per_token=min(2, self.experts_per_token)
             if self.num_experts else 0,
@@ -85,6 +99,7 @@ class ModelConfig:
             first_dense_layers=min(1, self.first_dense_layers),
             attn_period=min(2, self.attn_period) if self.attn_period else 0,
             attn_offset=0,
+            num_patches=8,
             d_state=8,
             ssm_expand=2,
             name=self.name + "-reduced",
@@ -107,3 +122,12 @@ DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
 LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
 
 SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[ShapeConfig]:
+    """The shape cells that lower for this arch: ``long_500k`` only for
+    the sub-quadratic (SSM and hybrid) families."""
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.is_subquadratic:
+        out.append(LONG_500K)
+    return out

@@ -5,9 +5,10 @@ Tokens are a seeded function of (step, position) so every data-parallel
 shard, restart, and elastic re-scale sees exactly the same global batch —
 which is what makes checkpoint-resume bitwise reproducible in tests.
 A background prefetch thread overlaps host data generation with device
-compute (the real-input-pipeline shape, minus the filesystem). The
-JAX package's ``vlm`` and encoder-decoder batches come with those
-families (ROADMAP.md queue 1, item 4b).
+compute (the real-input-pipeline shape, minus the filesystem). A VLM
+batch adds ``patches`` (B, num_patches, D) and holds seq - num_patches
+tokens; an encoder-decoder batch adds ``frames`` (B, seq, D); both
+carry no planted structure, as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -21,11 +22,21 @@ from repro_torch.configs.base import ModelConfig
 
 def global_batch(cfg: ModelConfig, step: int, batch: int, seq: int,
                  seed: int = 1234) -> dict:
-    if cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(
-            f"{cfg.family} batches come with the {cfg.family} family: "
-            "ROADMAP.md queue 1, item 4b")
     rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    if cfg.family == "vlm":
+        P = cfg.num_patches
+        toks = rng.integers(0, cfg.vocab_size, (batch, seq - P + 1),
+                            dtype=np.int32)
+        patches = rng.standard_normal((batch, P, cfg.d_model))
+        return {"tokens": toks[:, :-1],
+                "patches": patches.astype(np.float32) * 0.02,
+                "labels": toks[:, 1:]}
+    if cfg.is_encdec:
+        toks = rng.integers(0, cfg.vocab_size, (batch, seq + 1),
+                            dtype=np.int32)
+        frames = rng.standard_normal((batch, seq, cfg.d_model))
+        return {"frames": frames.astype(np.float32) * 0.1,
+                "tokens": toks[:, :-1], "labels": toks[:, 1:]}
     toks = rng.integers(0, cfg.vocab_size, (batch, seq + 1), dtype=np.int32)
     # plant learnable structure: token t+1 correlates with token t
     toks[:, 1:] = (toks[:, :-1] * 31

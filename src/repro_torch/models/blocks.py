@@ -1,18 +1,19 @@
 """Sublayer = (norm -> mixer -> residual) [+ (norm -> ffn -> residual)]
-in train, prefill and decode mode (the port of
+in train, encode, prefill and decode mode (the port of
 ``repro.models.blocks``).
 
-A ``SubDef`` names the mixer (``attn`` or ``mamba``; the JAX package's
-``cross_attn``, ``mlstm`` and ``slstm`` come with their families), the
-FFN (``dense``, ``moe`` or ``none``), a ``d_ff`` that overrides
-``cfg.d_ff`` for a dense FFN, and whether attention is causal.
-Parameters are the JAX package's layout: ``norm1``/``norm2`` ``{scale}``
-(and ``bias`` for layernorm); an attention ``mixer`` ``{wq, wk, wv,
-wo}`` with (in, out) matrices (and ``bq``...``bo`` with ``use_bias``); a
-Mamba ``mixer`` ``{in_proj, conv_w, conv_b, x_proj, dt_proj, dt_bias,
-A_log, D, out_proj}``; a dense ``ffn`` ``{w_gate, w_up, w_down}`` or
-``{w_up, w_down}``; a MoE ``ffn`` ``{router, w_gate, w_up, w_down}``
-with (E, in, out) expert stacks, and ``shared``/``residual`` MLPs."""
+A ``SubDef`` names the mixer (``attn``, ``cross_attn``, ``mamba``,
+``mlstm`` or ``slstm``), the FFN (``dense``, ``moe`` or ``none``), a
+``d_ff`` that overrides ``cfg.d_ff`` for a dense FFN, and whether
+attention is causal. Parameters are the JAX package's layout:
+``norm1``/``norm2`` ``{scale}`` (and ``bias`` for layernorm); an
+attention or cross-attention ``mixer`` ``{wq, wk, wv, wo}`` with (in,
+out) matrices (and ``bq``...``bo`` with ``use_bias``); a Mamba ``mixer``
+``{in_proj, conv_w, conv_b, x_proj, dt_proj, dt_bias, A_log, D,
+out_proj}``; the xLSTM mixers of ``models.xlstm``; a dense ``ffn``
+``{w_gate, w_up, w_down}`` or ``{w_up, w_down}``; a MoE ``ffn``
+``{router, w_gate, w_up, w_down}`` with (E, in, out) expert stacks, and
+``shared``/``residual`` MLPs."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import (
     decode_attn,
     flash_attn,
@@ -30,11 +32,14 @@ from repro_torch.models.common import apply_norm, apply_rope
 from repro_torch.models.mlp import mlp_apply
 from repro_torch.models.moe import moe_apply
 
-LATER_MIXERS = ("cross_attn", "mlstm", "slstm")
+# the recurrent mixers: (sequence path, one-token decode step)
+RECURRENT = {"mamba": (mamba_mod.mamba_apply, mamba_mod.mamba_decode),
+             "mlstm": (xlstm_mod.mlstm_apply, xlstm_mod.mlstm_decode),
+             "slstm": (xlstm_mod.slstm_apply, xlstm_mod.slstm_decode)}
 
 
 class SubDef(NamedTuple):
-    mixer: str          # attn | mamba (cross_attn | mlstm | slstm: item 4b)
+    mixer: str          # attn | cross_attn | mamba | mlstm | slstm
     ffn: str            # dense | moe | none
     d_ff: int = 0       # 0 -> cfg.d_ff
     causal: bool = True
@@ -100,26 +105,51 @@ def attn_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, dtype,
     return out
 
 
+def cross_attn(p: dict, x: torch.Tensor, cfg: ModelConfig, dtype,
+               enc_kv: dict) -> torch.Tensor:
+    """Decoder cross-attention against `enc_kv` k/v (B, Senc, Hkv, hd).
+    x (B, S, D): non-causal ``flash_attn`` of S queries against the
+    Senc keys; x (B, D), one decode token: ``decode_attn`` with length
+    Senc for every row."""
+    lead = x.shape[:-1]
+    q = _proj(p, x, "q", dtype, cfg).reshape(lead + (cfg.num_heads,
+                                                     cfg.head_dim))
+    if x.ndim == 2:
+        lengths = torch.full((x.shape[0],), enc_kv["k"].shape[1],
+                             dtype=torch.int64, device=x.device)
+        o = decode_attn(q, enc_kv["k"], enc_kv["v"], lengths)
+    else:
+        o = flash_attn(q, enc_kv["k"], enc_kv["v"], causal=False)
+    return _proj(p, o.reshape(lead + (cfg.q_dim,)), "o", dtype, cfg)
+
+
+def cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig,
+             dtype) -> dict:
+    """The cross-attention keys and values of the encoder output
+    (B, Senc, D): {k, v} (B, Senc, Hkv, hd) in the working dtype."""
+    lead = enc_out.shape[:-1]
+    shape = lead + (cfg.num_kv_heads, cfg.head_dim)
+    return {"k": _proj(p, enc_out, "k", dtype, cfg).reshape(shape),
+            "v": _proj(p, enc_out, "v", dtype, cfg).reshape(shape)}
+
+
 def sublayer_decode_state(cfg: ModelConfig, sd: SubDef, batch: int,
-                          max_len: int, dtype, device=None) -> dict:
-    """One layer's decode state: the KV cache, or the Mamba window and
-    SSM state."""
-    if sd.mixer == "attn":
-        shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+                          max_len: int, dtype, device=None,
+                          enc_len: int = 0) -> dict:
+    """One layer's decode state: the KV cache (`enc_len` rows for
+    cross-attention), the Mamba window and SSM state, or an xLSTM
+    cell's state (``models.xlstm``)."""
+    if sd.mixer in ("attn", "cross_attn"):
+        rows = max_len if sd.mixer == "attn" else enc_len
+        shape = (batch, rows, cfg.num_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if sd.mixer == "mamba":
         return mamba_mod.mamba_decode_state(cfg, batch, dtype, device)
-    unported_mixer(sd)
-
-
-def unported_mixer(sd: SubDef):
-    """Raise for a mixer the port does not have: NotImplementedError
-    naming the queue item for the JAX package's other mixers."""
-    if sd.mixer in LATER_MIXERS:
-        raise NotImplementedError(
-            f"mixer {sd.mixer!r} is not ported: ROADMAP.md queue 1, "
-            "item 4b")
+    if sd.mixer == "mlstm":
+        return xlstm_mod.mlstm_decode_state(cfg, batch, device)
+    if sd.mixer == "slstm":
+        return xlstm_mod.slstm_decode_state(cfg, batch, dtype, device)
     raise ValueError(sd.mixer)
 
 
@@ -138,18 +168,21 @@ def _apply_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, sd: SubDef,
 
 def sublayer_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, sd: SubDef,
                    dtype, *, mode: str, positions=None, pos=None,
-                   state=None, skip_blocks: bool = False) -> tuple:
+                   state=None, enc_out=None,
+                   skip_blocks: bool = False) -> tuple:
     """Returns (x, new_state). mode ``train``: x (B, S, D) at
     `positions`, stateless (new_state None), differentiable;
-    ``prefill``: the same forward, the state filled from the sequence;
-    ``decode``: x (B, D), one token at `pos` (B,). An attention cache is
-    updated in place (new_state is `state`); a Mamba state comes back as
-    new tensors, as the JAX package returns it. `skip_blocks` is
-    ``RunFlags.skip_masked_blocks`` (train mode). The JAX package's
-    ``encode`` mode comes with the encoder-decoder family (item 4b)."""
-    if mode not in ("train", "prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} is not ported: ROADMAP.md "
-                                  "queue 1, item 4b")
+    ``encode``: the same with non-causal attention; ``prefill``: the
+    same forward, the state filled from the sequence; ``decode``: x (B,
+    D), one token at `pos` (B,). `enc_out` (B, Senc, D) feeds
+    cross-attention in train and prefill mode; in decode mode it
+    attends to the cross k/v in `state`. An attention cache is updated
+    in place (new_state is `state`); a Mamba or xLSTM state comes back
+    as new tensors, as the JAX package returns it, and so does the
+    cross k/v built by a prefill. `skip_blocks` is
+    ``RunFlags.skip_masked_blocks`` (train mode)."""
+    if mode not in ("train", "encode", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}")
     h = apply_norm(p["norm1"], x, cfg.norm_type, cfg.norm_eps)
     new_state = state
     if sd.mixer == "attn":
@@ -160,18 +193,27 @@ def sublayer_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, sd: SubDef,
                              causal=sd.causal)
         else:
             y = attn_seq(p["mixer"], h, cfg, dtype, positions,
-                         causal=sd.causal, skip_blocks=skip_blocks)[0]
-    elif sd.mixer == "mamba":
+                         causal=mode != "encode" and sd.causal,
+                         skip_blocks=skip_blocks)[0]
+    elif sd.mixer == "cross_attn":
         if mode == "decode":
-            y, new_state = mamba_mod.mamba_decode(p["mixer"], h, state, cfg,
-                                                  dtype)
-        elif mode == "prefill":
-            y, new_state = mamba_mod.mamba_apply(p["mixer"], h, cfg, dtype,
-                                                 return_state=True)
+            kv = state
         else:
-            y = mamba_mod.mamba_apply(p["mixer"], h, cfg, dtype)
+            kv = cross_kv(p["mixer"], enc_out, cfg, dtype)
+            if mode == "prefill":
+                new_state = kv
+        y = cross_attn(p["mixer"], h, cfg, dtype, kv)
+    elif sd.mixer in RECURRENT:
+        apply, decode = RECURRENT[sd.mixer]
+        if mode == "decode":
+            y, new_state = decode(p["mixer"], h, state, cfg, dtype)
+        elif mode == "prefill":
+            y, new_state = apply(p["mixer"], h, cfg, dtype,
+                                 return_state=True)
+        else:
+            y = apply(p["mixer"], h, cfg, dtype)
     else:
-        unported_mixer(sd)
+        raise ValueError(sd.mixer)
     x = x + y
     if sd.ffn != "none":
         x = _apply_ffn(p, x, cfg, sd, dtype)

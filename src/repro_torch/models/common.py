@@ -1,5 +1,5 @@
 """Shared model pieces (the port of ``repro.models.common``): norms,
-RoPE, embeddings. Functions on tensors, same layouts and the same
+RoPE, sinusoidal positions, embeddings. Functions on tensors, same layouts and the same
 float32 islands as the JAX package."""
 from __future__ import annotations
 
@@ -39,6 +39,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x2 = x[..., 1::2].float()
     out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
+
+
+def sin_pos(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal embedding of `positions` (...,) -> (..., dim) in
+    float32: sines of the first dim/2 frequencies, then their cosines,
+    as the JAX ``sin_pos`` computes it (cast to the working dtype at
+    use)."""
+    i = torch.arange(dim // 2, dtype=torch.float32, device=positions.device)
+    angle = positions[..., None].float() / torch.pow(
+        torch.tensor(10000.0, device=positions.device), 2 * i / dim)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
 def pad_vocab(vocab: int, multiple: int = 256) -> int:

@@ -1,9 +1,10 @@
-"""Decoder-only LM of the dense, MoE and hybrid families (the port of
-``repro.models.lm``).
+"""Decoder-only LM of every family but the encoder-decoder one (the
+port of ``repro.models.lm``).
 
-``layout(cfg)`` groups the layers as the JAX package does: a dense or
-MoE model is one-sublayer groups (Kimi's leading dense layers ``g0``,
-then its MoE layers ``g1``), Jamba one group of ``attn_period``
+``layout(cfg)`` groups the layers as the JAX package does: a dense, VLM
+or MoE model is one-sublayer groups (Kimi's leading dense layers
+``g0``, then its MoE layers ``g1``), xLSTM ``num_layers // 2`` pairs of
+an mLSTM and an sLSTM sublayer, Jamba one group of ``attn_period``
 sublayers (attention at ``attn_offset``, Mamba elsewhere, MoE where
 ``i % moe_every == moe_offset``). ``DecoderLM`` holds the JAX package's
 parameter layout: ``embed`` (padded vocab, D), an ``unembed`` when
@@ -12,14 +13,23 @@ group's repeats), and ``final_norm``. ``load_flat`` takes exactly the
 flat ``{path: array}`` dict that ``repro.train.checkpoint.state_to_tree``
 makes of a JAX ``DecoderLM``'s params, which is also what
 ``ImageHandle.restore_tree`` returns for an image of them, so the two
-packages serve the same weights.
+packages serve the same weights. ``param_specs``, ``init_flat`` and
+``init_device`` also cover the encoder-decoder layout
+(``models.encdec``).
+
+VLM. ``batch["patches"]`` (B, num_patches, D), precomputed patch
+embeddings, is prefixed to the embedded tokens; positions run over
+patches and text alike, the loss drops the patch rows after the final
+norm, and decoding after a prefill continues at position P + T.
 
 Dtypes. Leaves are cast once to the working dtype at load (the JAX
 package casts them at every use with ``astype(dtype)``; the values are
 the same), except the leaves it reads without that cast, which stay
-float32: norm ``scale``/``bias`` (norms run in float32) and Mamba's
-``A_log`` (``A = -exp(A_log)`` in float32). Mamba's ``D``, ``dt_bias``
-and ``conv_b`` and the MoE ``router`` are all read through
+float32: norm ``scale``/``bias`` (norms run in float32), Mamba's
+``A_log`` (``A = -exp(A_log)`` in float32), the sLSTM recurrence ``r``
+and bias ``b`` and the mLSTM gate bias ``b_if`` (added to float32 gate
+pre-activations). Mamba's ``D``, ``dt_bias`` and ``conv_b``, the MoE
+``router`` and the xLSTM ``norm_scale`` are all read through
 ``astype(dtype)``, so they take the working dtype.
 
 Training. ``loss(params, batch)`` runs every layer in train mode over
@@ -29,14 +39,14 @@ does), each layer under the ``RunFlags.remat`` policy, and returns the
 float32 mean cross-entropy; ``load_flat``, ``prefill`` and
 ``decode_step`` hold weights of their own and take no gradients.
 
-Decode state. KV caches and Mamba conv windows are made in the
-``init_decode_state`` dtype (bfloat16 by default, whatever the working
-dtype), SSM states in float32. Caches and SSM states are updated in
-place. A conv window takes the dtype the JAX package's state would
-have: the working dtype after a prefill, and its dtype promoted with
-the working dtype after a decode step (so a bfloat16 window becomes
-float32 at the first step of a float32 model); the state dict then
-holds the converted tensor."""
+Decode state. KV caches and the Mamba and sLSTM conv windows are made
+in the ``init_decode_state`` dtype (bfloat16 by default, whatever the
+working dtype), SSM and xLSTM cell states in float32. Caches and states
+are updated in place. A conv window takes the dtype the JAX package's
+state would have: the working dtype after a prefill, and its dtype
+promoted with the working dtype after a decode step (so a bfloat16
+window becomes float32 at the first step of a float32 model); the state
+dict then holds the converted tensor."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -51,7 +61,6 @@ from repro_torch.models.blocks import (
     SubDef,
     sublayer_apply,
     sublayer_decode_state,
-    unported_mixer,
 )
 from repro_torch.models.common import (
     apply_norm,
@@ -61,11 +70,13 @@ from repro_torch.models.common import (
     softmax_xent,
 )
 from repro_torch.models.mamba import d_inner, dt_rank
+from repro_torch.models.xlstm import m_inner, slstm_ff
 from repro_torch.train.checkpoint import LeafSpec
 
 # leaves kept in float32 whatever the working dtype (module doc)
-F32_LEAVES = ("scale", "bias", "A_log")
-LATER_FAMILIES = ("ssm", "encdec", "vlm")
+F32_LEAVES = ("scale", "bias", "A_log", "r", "b", "b_if")
+# conv windows whose dtype follows the JAX package's state (module doc)
+WINDOWED = ("mamba", "slstm")
 
 
 @dataclass(frozen=True)
@@ -103,7 +114,7 @@ class RunFlags:
 def layout(cfg: ModelConfig) -> list:
     """[(repeats, [SubDef per sublayer])] per group, as the JAX
     package's ``layout``."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return [(cfg.num_layers, [SubDef("attn", "dense")])]
     if cfg.family == "moe":
         groups = []
@@ -113,6 +124,9 @@ def layout(cfg: ModelConfig) -> list:
         groups.append((cfg.num_layers - cfg.first_dense_layers,
                        [SubDef("attn", "moe")]))
         return groups
+    if cfg.family == "ssm" and cfg.ssm_type == "xlstm":
+        return [(cfg.num_layers // 2, [SubDef("mlstm", "none"),
+                                       SubDef("slstm", "none")])]
     if cfg.family == "hybrid":
         subs = []
         for i in range(cfg.attn_period):
@@ -123,80 +137,103 @@ def layout(cfg: ModelConfig) -> list:
             subs.append(SubDef(mixer, ffn,
                                cfg.dense_d_ff if ffn == "dense" else 0))
         return [(cfg.num_layers // cfg.attn_period, subs)]
-    if cfg.family in LATER_FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported: "
-            "ROADMAP.md queue 1, item 4b")
     raise ValueError(f"no layout for family {cfg.family}")
 
 
-def param_specs(cfg: ModelConfig) -> dict:
-    """Nested {name: LeafSpec} of the JAX package's layout, float32."""
+def sublayer_specs(cfg: ModelConfig, R: int, sd: SubDef) -> dict:
+    """{name: LeafSpec} of R stacked sublayers `sd`, float32, the JAX
+    ``sublayer_init``'s layout with a leading dim R."""
     f32 = np.dtype(np.float32)
-    D, V = cfg.d_model, pad_vocab(cfg.vocab_size)
+    D = cfg.d_model
 
-    def norm(R):
-        if cfg.norm_type == "layernorm":
-            return {"scale": LeafSpec((R, D), f32),
-                    "bias": LeafSpec((R, D), f32)}
-        return {"scale": LeafSpec((R, D), f32)}
-
-    def mats(R, shapes: dict) -> dict:
+    def mats(shapes: dict) -> dict:
         return {k: LeafSpec((R,) + tuple(s), f32) for k, s in shapes.items()}
 
-    def mlp(R, d_ff):
-        if cfg.mlp_type == "swiglu":
-            return mats(R, {"w_gate": (D, d_ff), "w_up": (D, d_ff),
-                            "w_down": (d_ff, D)})
-        return mats(R, {"w_up": (D, d_ff), "w_down": (d_ff, D)})
+    def norm():
+        if cfg.norm_type == "layernorm":
+            return mats({"scale": (D,), "bias": (D,)})
+        return mats({"scale": (D,)})
 
-    def attn(R):
-        out = mats(R, {"wq": (D, cfg.q_dim), "wk": (D, cfg.kv_dim),
-                       "wv": (D, cfg.kv_dim), "wo": (cfg.q_dim, D)})
+    def mlp(d_ff):
+        if cfg.mlp_type == "swiglu":
+            return mats({"w_gate": (D, d_ff), "w_up": (D, d_ff),
+                         "w_down": (d_ff, D)})
+        return mats({"w_up": (D, d_ff), "w_down": (d_ff, D)})
+
+    def attn():
+        out = mats({"wq": (D, cfg.q_dim), "wk": (D, cfg.kv_dim),
+                    "wv": (D, cfg.kv_dim), "wo": (cfg.q_dim, D)})
         if cfg.use_bias:
-            out.update(mats(R, {"bq": (cfg.q_dim,), "bk": (cfg.kv_dim,),
-                                "bv": (cfg.kv_dim,), "bo": (D,)}))
+            out.update(mats({"bq": (cfg.q_dim,), "bk": (cfg.kv_dim,),
+                             "bv": (cfg.kv_dim,), "bo": (D,)}))
         return out
 
-    def mamba(R):
+    def mamba():
         Din, N, dtr = d_inner(cfg), cfg.d_state, dt_rank(cfg)
-        return mats(R, {"in_proj": (D, 2 * Din), "conv_w": (cfg.d_conv, Din),
-                        "conv_b": (Din,), "x_proj": (Din, dtr + 2 * N),
-                        "dt_proj": (dtr, Din), "dt_bias": (Din,),
-                        "A_log": (Din, N), "D": (Din,),
-                        "out_proj": (Din, D)})
+        return mats({"in_proj": (D, 2 * Din), "conv_w": (cfg.d_conv, Din),
+                     "conv_b": (Din,), "x_proj": (Din, dtr + 2 * N),
+                     "dt_proj": (dtr, Din), "dt_bias": (Din,),
+                     "A_log": (Din, N), "D": (Din,), "out_proj": (Din, D)})
 
-    def moe(R):
+    def mlstm():
+        Din, H = m_inner(cfg), cfg.num_heads
+        return mats({"up": (D, 2 * Din), "wq": (Din, Din), "wk": (Din, Din),
+                     "wv": (Din, Din), "w_if": (Din, 2 * H),
+                     "b_if": (2 * H,), "down": (Din, D),
+                     "norm_scale": (Din,)})
+
+    def slstm():
+        H, ff = cfg.num_heads, slstm_ff(cfg)
+        return mats({"conv_w": (cfg.d_conv, D), "w_x": (D, 4 * D),
+                     "r": (4, H, D // H, D // H), "b": (4 * D,),
+                     "ff_up": (D, ff), "ff_down": (ff, D)})
+
+    def moe():
         E, F = cfg.num_experts, cfg.d_ff
         experts = {"w_up": (E, D, F), "w_down": (E, F, D)}
         if cfg.mlp_type == "swiglu":
             experts["w_gate"] = (E, D, F)
-        out = mats(R, {"router": (D, E), **experts})
+        out = mats({"router": (D, E), **experts})
         if cfg.shared_experts:
-            out["shared"] = mlp(R, F * cfg.shared_experts)
+            out["shared"] = mlp(F * cfg.shared_experts)
         if cfg.dense_residual:
-            out["residual"] = mlp(R, cfg.dense_d_ff)
+            out["residual"] = mlp(cfg.dense_d_ff)
         return out
 
-    def sublayer(R, sd: SubDef):
-        mixers = {"attn": attn, "mamba": mamba}
-        if sd.mixer not in mixers:
-            unported_mixer(sd)
-        p = {"norm1": norm(R), "mixer": mixers[sd.mixer](R)}
-        if sd.ffn != "none":
-            p["norm2"] = norm(R)
-            p["ffn"] = moe(R) if sd.ffn == "moe" \
-                else mlp(R, sd.d_ff or cfg.d_ff)
-        return p
+    mixers = {"attn": attn, "cross_attn": attn, "mamba": mamba,
+              "mlstm": mlstm, "slstm": slstm}
+    if sd.mixer not in mixers:
+        raise ValueError(sd.mixer)
+    p = {"norm1": norm(), "mixer": mixers[sd.mixer]()}
+    if sd.ffn != "none":
+        p["norm2"] = norm()
+        p["ffn"] = moe() if sd.ffn == "moe" else mlp(sd.d_ff or cfg.d_ff)
+    return p
 
-    tree = {"embed": LeafSpec((V, D), f32)}
+
+def norm_specs(cfg: ModelConfig) -> dict:
+    """A final norm's {name: LeafSpec}, float32."""
+    f32 = np.dtype(np.float32)
+    names = ("scale", "bias") if cfg.norm_type == "layernorm" \
+        else ("scale",)
+    return {k: LeafSpec((cfg.d_model,), f32) for k in names}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Nested {name: LeafSpec} of the JAX package's layout, float32; for
+    an encoder-decoder config, ``models.encdec.param_specs``'s."""
+    if cfg.is_encdec:
+        from repro_torch.models.encdec import param_specs as encdec_specs
+        return encdec_specs(cfg)
+    f32 = np.dtype(np.float32)
+    V = pad_vocab(cfg.vocab_size)
+    tree = {"embed": LeafSpec((V, cfg.d_model), f32)}
     if not cfg.tie_embeddings:
-        tree["unembed"] = LeafSpec((V, D), f32)
+        tree["unembed"] = LeafSpec((V, cfg.d_model), f32)
     for gi, (R, subs) in enumerate(layout(cfg)):
-        tree[f"g{gi}"] = {f"s{j}": sublayer(R, sd)
+        tree[f"g{gi}"] = {f"s{j}": sublayer_specs(cfg, R, sd)
                           for j, sd in enumerate(subs)}
-    tree["final_norm"] = {k: LeafSpec(sp.shape[1:], f32)
-                          for k, sp in norm(1).items()}
+    tree["final_norm"] = norm_specs(cfg)
     return tree
 
 
@@ -214,11 +251,16 @@ def flat_specs(tree, prefix=()) -> dict:
 def init_rule(name: str, shape: tuple) -> tuple:
     """(kind, argument) of the JAX package's init for one leaf: ones,
     zeros, ``A_log`` = log(1..N), ``dt_bias`` from a log-uniform dt in
-    [1e-3, 1e-1], or a normal with its scale (embeddings 0.02, Mamba's
-    ``conv_w`` 0.2, matrices 1/sqrt(fan_in))."""
+    [1e-3, 1e-1], an xLSTM gate bias of n equal blocks (``b_if``: i, f;
+    ``b``: i, f, z, o) whose forget block is 3.0 and the rest zero, or
+    a normal with its scale (embeddings 0.02, the Mamba and sLSTM
+    ``conv_w`` 0.2, matrices 1/sqrt(fan_in): the sLSTM ``r`` is
+    1/sqrt(hd))."""
     leaf = name.rsplit("/", 1)[-1]
-    if leaf in ("scale", "D"):
+    if leaf in ("scale", "D", "norm_scale"):
         return "ones", None
+    if leaf in ("b_if", "b"):
+        return "forget_bias", 2 if leaf == "b_if" else 4
     if leaf.startswith("b") or leaf == "conv_b":
         return "zeros", None
     if leaf in ("A_log", "dt_bias"):
@@ -228,6 +270,15 @@ def init_rule(name: str, shape: tuple) -> tuple:
     if leaf == "conv_w":
         return "normal", 0.2
     return "normal", 1.0 / np.sqrt(shape[-2])
+
+
+def forget_bias(shape: tuple, blocks: int, dtype, device=None):
+    """Zeros of `shape` whose last dim's second of `blocks` equal blocks
+    (the forget gate's) is 3.0."""
+    t = torch.zeros(shape, dtype=dtype, device=device)
+    n = shape[-1] // blocks
+    t[..., n:2 * n] = 3.0
+    return t
 
 
 def init_flat(cfg: ModelConfig, seed: int) -> dict:
@@ -248,6 +299,8 @@ def init_flat(cfg: ModelConfig, seed: int) -> dict:
         elif kind == "dt_bias":
             u = rng.uniform(np.log(1e-3), np.log(1e-1), sp.shape)
             out[name] = np.log(np.expm1(np.exp(u))).astype(np.float32)
+        elif kind == "forget_bias":
+            out[name] = forget_bias(sp.shape, scale, torch.float32).numpy()
         else:
             w = rng.standard_normal(sp.shape, dtype=np.float32)
             w *= np.float32(scale)
@@ -284,6 +337,8 @@ def init_device(cfg: ModelConfig, seed: int, dtype: str = "bfloat16",
             u = torch.rand(sp.shape, generator=gen, device=device)
             u = u * (np.log(1e-1) - np.log(1e-3)) + np.log(1e-3)
             t = torch.log(torch.expm1(torch.exp(u))).to(dt)
+        elif kind == "forget_bias":
+            t = forget_bias(sp.shape, scale, dt, device)
         else:
             t = torch.randn(sp.shape, generator=gen, dtype=dt, device=device)
             t.mul_(scale)
@@ -325,6 +380,55 @@ def _dots_policy():
     return create_selective_checkpoint_contexts(policy)
 
 
+def place(value, sp: LeafSpec, device, dtype) -> torch.Tensor:
+    """`value` (numpy or tensor) of spec `sp` as a tensor on `device` in
+    `dtype`; a tensor already there in that dtype is not copied."""
+    if isinstance(value, torch.Tensor):
+        return value.reshape(sp.shape).to(device, dtype)
+    arr = np.asarray(value, dtype=np.float32).reshape(sp.shape)
+    return torch.from_numpy(np.require(arr, requirements="CW")).to(
+        device, dtype)
+
+
+@torch.no_grad()
+def load_tree(specs: dict, flat: dict, device, dtype) -> dict:
+    """The nested params of {path: numpy array or tensor} `flat`, which
+    must hold exactly the names and shapes of `specs` (raises on a
+    missing, extra or misshapen tensor): each leaf on `device` in
+    `dtype`, or in float32 for ``F32_LEAVES``."""
+    want = flat_specs(specs)
+    missing, extra = set(want) - set(flat), set(flat) - set(want)
+    if missing or extra:
+        raise KeyError(f"load_flat: missing {sorted(missing)}, "
+                       f"unexpected {sorted(extra)}")
+    for name, sp in want.items():
+        if tuple(np.shape(flat[name])) != sp.shape:
+            raise ValueError(f"load_flat: {name} has shape "
+                             f"{tuple(np.shape(flat[name]))}, want "
+                             f"{sp.shape}")
+    params: dict = {}
+    for name, sp in want.items():
+        *head, leaf = name.split("/")
+        node = params
+        for k in head:
+            node = node.setdefault(k, {})
+        node[leaf] = place(flat[name], sp, device,
+                           torch.float32 if leaf in F32_LEAVES else dtype)
+    return params
+
+
+def remat(flags: RunFlags, run, x: torch.Tensor) -> torch.Tensor:
+    """``run(x)`` under the ``flags.remat`` policy (without autograd,
+    plainly)."""
+    from torch.utils.checkpoint import checkpoint
+
+    if flags.remat == "none" or not torch.is_grad_enabled():
+        return run(x)
+    if flags.remat == "full":
+        return checkpoint(run, x, use_reentrant=False)
+    return checkpoint(run, x, use_reentrant=False, context_fn=_dots_policy)
+
+
 class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, flags: RunFlags = RunFlags(),
                  device="cuda"):
@@ -338,47 +442,20 @@ class DecoderLM(nn.Module):
         self.params: dict | None = None
         self._groups: list = []      # per group: [per-layer params]
 
-    def _place(self, value, sp: LeafSpec, leaf: str) -> torch.Tensor:
-        dt = torch.float32 if leaf in F32_LEAVES else self.dtype
-        if isinstance(value, torch.Tensor):
-            return value.reshape(sp.shape).to(self.device, dt)
-        arr = np.asarray(value, dtype=np.float32).reshape(sp.shape)
-        t = torch.from_numpy(np.require(arr, requirements="CW"))
-        return t.to(self.device, dt)
-
-    @torch.no_grad()
     def load_flat(self, flat: dict) -> "DecoderLM":
         """Load {path: numpy array or tensor}: exactly this config's
-        names and shapes (raises on a missing, extra or misshapen
-        tensor). Tensors already on the device in their load dtype are
-        taken without a copy."""
-        want = flat_specs(self.specs)
-        missing, extra = set(want) - set(flat), set(flat) - set(want)
-        if missing or extra:
-            raise KeyError(f"load_flat: missing {sorted(missing)}, "
-                           f"unexpected {sorted(extra)}")
-        for name, sp in want.items():
-            if tuple(np.shape(flat[name])) != sp.shape:
-                raise ValueError(f"load_flat: {name} has shape "
-                                 f"{tuple(np.shape(flat[name]))}, want "
-                                 f"{sp.shape}")
-        params: dict = {}
-        for name, sp in want.items():
-            *head, leaf = name.split("/")
-            node = params
-            for k in head:
-                node = node.setdefault(k, {})
-            node[leaf] = self._place(flat[name], sp, leaf)
-        self.params = params
-        self._groups = [[_index(params[f"g{gi}"], r) for r in range(R)]
+        names and shapes (``load_tree``). Tensors already on the device
+        in their load dtype are taken without a copy."""
+        self.params = load_tree(self.specs, flat, self.device, self.dtype)
+        self._groups = [[_index(self.params[f"g{gi}"], r) for r in range(R)]
                         for gi, (R, _) in enumerate(self.layout)]
         return self
 
     def init_decode_state(self, batch: int, max_len: int,
                           dtype=torch.bfloat16) -> dict:
         """{g{i}: {s{j}: state}}, each leaf stacked (R, ...): KV caches
-        (B, max_len, Hkv, hd) and Mamba windows in `dtype`, SSM states
-        float32 (module doc)."""
+        (B, max_len, Hkv, hd) and conv windows in `dtype`, SSM and
+        xLSTM cell states float32 (module doc)."""
         states = {}
         for gi, (R, subs) in enumerate(self.layout):
             g = {}
@@ -404,14 +481,14 @@ class DecoderLM(nn.Module):
     def _run(self, x: torch.Tensor, state: dict, mode: str,
              **where) -> torch.Tensor:
         """Every group, layer and sublayer in order; the stacked decode
-        state updated in place (a Mamba window's tensor replaced first
+        state updated in place (a conv window's tensor replaced first
         when its dtype changes, module doc)."""
         cfg, dtype = self.cfg, self.dtype
         for gi, (_, subs) in enumerate(self.layout):
             g_state = state[f"g{gi}"]
             for j, sd in enumerate(subs):
                 st = g_state[f"s{j}"]
-                if sd.mixer == "mamba":
+                if sd.mixer in WINDOWED:
                     conv_dt = dtype if mode == "prefill" \
                         else torch.promote_types(st["conv"].dtype, dtype)
                     st["conv"] = st["conv"].to(conv_dt)
@@ -429,8 +506,6 @@ class DecoderLM(nn.Module):
     def _run_train(self, params: dict, x: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
         """Every layer in train mode, each under the ``remat`` policy."""
-        from torch.utils.checkpoint import checkpoint
-
         cfg, dtype, flags = self.cfg, self.dtype, self.flags
         for gi, (R, subs) in enumerate(self.layout):
             for pl in _unstack(params[f"g{gi}"], R):
@@ -441,31 +516,37 @@ class DecoderLM(nn.Module):
                             positions=positions,
                             skip_blocks=flags.skip_masked_blocks)
                     return h
-                if flags.remat == "none":
-                    x = run(x)
-                elif flags.remat == "full":
-                    x = checkpoint(run, x, use_reentrant=False)
-                else:
-                    x = checkpoint(run, x, use_reentrant=False,
-                                   context_fn=_dots_policy)
+                x = remat(flags, run, x)
+        return x
+
+    def _embed(self, params: dict, batch: dict) -> torch.Tensor:
+        """The embedded tokens (B, T, D), prefixed with
+        ``batch["patches"]`` for a VLM."""
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device)
+        x = embed_lookup(params["embed"], tokens, self.dtype)
+        if self.cfg.family == "vlm":
+            patches = torch.as_tensor(batch["patches"]).to(self.device)
+            x = torch.cat([patches.to(self.dtype), x], dim=1)
         return x
 
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` (both (B, S)), a float32 scalar, as the JAX
-        ``DecoderLM.loss``. `params` is a nested tree of the JAX
+        ``DecoderLM.loss`` (a VLM's ``batch["patches"]`` prefixed, their
+        rows dropped before the logits). `params` is a nested tree of the JAX
         package's layout (``param_specs``), typically float32 master
         weights that require grad; every use casts to the working dtype,
         so their gradients come out in their own dtype (float32), as
         ``jax.value_and_grad``'s do. Layers run under ``flags.remat``;
         ``flags.chunked_loss`` selects ``chunked_softmax_xent``."""
         cfg, flags, dtype = self.cfg, self.flags, self.dtype
-        tokens = torch.as_tensor(batch["tokens"]).to(self.device)
         labels = torch.as_tensor(batch["labels"]).to(self.device)
-        x = embed_lookup(params["embed"], tokens, dtype)
-        positions = torch.arange(tokens.shape[1], device=self.device)
+        x = self._embed(params, batch)
+        positions = torch.arange(x.shape[1], device=self.device)
         x = self._run_train(params, x, positions)
         x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+        if cfg.family == "vlm":
+            x = x[:, cfg.num_patches:]
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
         if flags.chunked_loss:
             return chunked_softmax_xent(x, table.to(dtype), labels,
@@ -476,15 +557,15 @@ class DecoderLM(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: dict, state: dict) -> tuple:
         """Full-sequence forward over ``batch["tokens"]`` (B, S) at
-        positions 0..S-1 that fills the decode state: returns
+        positions 0..S-1 (a VLM's ``batch["patches"]`` (B, P, D) first:
+        S counts them) that fills the decode state: returns
         (last-position logits (B, padded vocab) in the working dtype,
-        state), the KV caches holding rows [0, S) and the Mamba states
-        those after token S-1. ``decode_step`` continues at position
-        S."""
+        state), the KV caches holding rows [0, S) and the recurrent
+        states those after the last row. ``decode_step`` continues at
+        position S."""
         self._check_loaded()
-        tokens = torch.as_tensor(batch["tokens"]).to(self.device)
-        x = embed_lookup(self.params["embed"], tokens, self.dtype)
-        positions = torch.arange(tokens.shape[1], device=self.device)
+        x = self._embed(self.params, batch)
+        positions = torch.arange(x.shape[1], device=self.device)
         x = self._run(x, state, "prefill", positions=positions)
         return self._logits(x[:, -1]), state
 

@@ -5,8 +5,8 @@ expert-parallel worker's shard (the port of ``repro.serve.coldstart``).
 ``ImageService`` (excess starts raise ``ColdStartRejected``), opens the
 image as a tenant session, restores the weights through the service's
 tiers under one ``ReadPolicy``, promotes float64 leaves to float32,
-loads them into the model (``DecoderLM.load_flat``) and stands up a
-``ServeEngine``.
+loads them into the model (``load_flat`` of a ``DecoderLM`` or an
+``EncDecModel``) and stands up a ``ServeEngine``.
 
 ``expert_shard_restore`` restores what one expert-parallel worker
 holds: its own experts' slices of every expert stack and every other

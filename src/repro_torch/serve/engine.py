@@ -3,11 +3,15 @@ batching over the model's cached ``decode_step``, greedy sampling,
 prompts prefilled by decoding one token per step.
 
 The decode state is the model's tree of groups and sublayers (KV
-caches, Mamba windows and SSM states), which ``decode_step`` returns
-and the engine keeps. As in the JAX package, admitting a request to a
-freed slot resets its position but not its state: a Mamba sublayer
-starts from the previous occupant's window and SSM state (ROADMAP.md
-§3), while attention masks the old cache rows by position."""
+caches, Mamba and xLSTM windows and cell states; an encoder-decoder's
+self-attention caches and cross k/v), which ``decode_step`` returns and
+the engine keeps. As in the JAX package, admitting a request to a
+freed slot resets its position but not its state: a Mamba or xLSTM
+sublayer starts from the previous occupant's state (ROADMAP.md §3),
+while attention masks the old cache rows by position. The engine takes
+tokens only: a VLM decodes without patches, and an encoder-decoder
+against the zero cross k/v of ``init_decode_state`` (no frames), as
+the JAX engine does."""
 from __future__ import annotations
 
 import time

@@ -4,7 +4,9 @@
 The state is the JAX package's tree, ``{"params": ..., "opt": {"m",
 "v", "step"}}``, of torch tensors on the model's device: float32 master
 weights in the model's parameter layout (``models.lm.param_specs``) and
-the optimizer state of ``train.optimizer``. A step computes the loss
+the optimizer state of ``train.optimizer``; the model is any
+``build_model`` result (``DecoderLM`` or ``EncDecModel``), whose layout
+``param_specs`` gives by family. A step computes the loss
 and every gradient (``torch.autograd.grad`` of ``model.loss``) and
 applies AdamW, returning a new state, as the JAX step does."""
 from __future__ import annotations

@@ -1,6 +1,8 @@
-"""Shared checks of the port's MoE and hybrid families against the JAX
-package on the CPU (``tests/test_torch_families*.py``), with the same
-weights: the JAX ``DecoderLM.init`` params of ``jax.random.key(0)``
+"""Shared checks of the port's MoE, hybrid, xLSTM, VLM and
+encoder-decoder families against the JAX package on the CPU
+(``tests/test_torch_families*.py``, ``tests/test_torch_encdec.py``),
+with the same weights: the JAX model's ``init`` params of
+``jax.random.key(0)``
 (jitted: a third of the eager init's time) through ``state_to_tree``
 into ``load_flat``.
 
@@ -13,7 +15,7 @@ neighbouring bfloat16 values now and then (reduced kimi, seed 0: 1.7e-4
 after three decode steps with bfloat16 caches, 3.8e-7 with float32
 ones). The engine runs with the default bfloat16 states, so a Mamba
 window is promoted to float32 at the first step, as the JAX package's
-is."""
+is. A VLM's prefill takes random patch embeddings beside its tokens."""
 import functools
 
 import jax
@@ -29,7 +31,7 @@ from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JEngine
 from repro.train.checkpoint import state_to_tree
 from repro_torch.configs import get_config
-from repro_torch.models import DecoderLM, RunFlags
+from repro_torch.models import RunFlags, build_model
 from repro_torch.models.lm import F32_LEAVES, flat_specs, param_specs
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -44,15 +46,16 @@ def jax_params(arch: str) -> tuple:
     return state_to_tree(params), params
 
 
-def port(arch: str, flat: dict, dtype: str) -> DecoderLM:
-    return DecoderLM(get_config(arch).reduced(), RunFlags(dtype=dtype),
-                     device="cpu").load_flat(flat)
+def port(arch: str, flat: dict, dtype: str):
+    return build_model(get_config(arch).reduced(), RunFlags(dtype=dtype),
+                       device="cpu").load_flat(flat)
 
 
-def check_names_shapes_and_dtypes(arch: str):
+def check_names_shapes_and_dtypes(arch: str, victim: str = "ffn/w_up"):
     """``load_flat`` takes exactly ``state_to_tree``'s names and shapes
-    (raises on a missing, extra or misshapen one) and keeps
-    ``F32_LEAVES`` in float32 under bfloat16."""
+    (raises on a missing, extra or misshapen one, here the first
+    tensor whose name ends with `victim`) and keeps ``F32_LEAVES`` in
+    float32 under bfloat16."""
     flat, _ = jax_params(arch)
     specs = flat_specs(param_specs(get_config(arch).reduced()))
     assert specs.keys() == flat.keys()
@@ -63,7 +66,7 @@ def check_names_shapes_and_dtypes(arch: str):
         leaf = name.rsplit("/", 1)[-1]
         want = torch.float32 if leaf in F32_LEAVES else torch.bfloat16
         assert t.dtype == want, name
-    victim = next(n for n in flat if n.endswith("ffn/w_up"))
+    victim = next(n for n in sorted(flat) if n.endswith(victim))
     with pytest.raises(KeyError):
         tm.load_flat({k: v for k, v in flat.items() if k != victim})
     with pytest.raises(KeyError):
@@ -90,14 +93,19 @@ def check_prefill_and_decode_logits(arch: str, dtype: str):
         else (jnp.bfloat16, torch.bfloat16)
     B, S = 2, 5
     rng = np.random.default_rng(11)
-    toks = rng.integers(0, 256, (B, S))
-    jl, jst = jax.jit(jm.prefill)(params, {"tokens": jnp.asarray(toks)},
-                                  jm.init_decode_state(B, 16, jdt))
-    tl, tst = tm.prefill({"tokens": torch.from_numpy(toks)},
-                         tm.init_decode_state(B, 16, tdt))
+    batch = {"tokens": rng.integers(0, 256, (B, S))}
+    if tm.cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (B, tm.cfg.num_patches, tm.cfg.d_model), np.float32) * 0.02
+    rows = S + (tm.cfg.num_patches if "patches" in batch else 0)
+    jl, jst = jax.jit(jm.prefill)(
+        params, {k: jnp.asarray(v) for k, v in batch.items()},
+        jm.init_decode_state(B, 32, jdt))
+    tl, tst = tm.prefill({k: torch.from_numpy(v) for k, v in batch.items()},
+                         tm.init_decode_state(B, 32, tdt))
     _close(tl, jl, dtype)
     step = jax.jit(jm.decode_step)
-    pos = np.full(B, S)
+    pos = np.full(B, rows)
     for _ in range(3):
         t = rng.integers(0, 256, B)
         jl, jst = step(params, jst, jnp.asarray(t, jnp.int32),

@@ -14,7 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import _torch_families as fam  # noqa: E402
-from repro_torch.configs import ModelConfig, get_config  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.models import DecoderLM, build_model  # noqa: E402
 from repro_torch.models.lm import F32_LEAVES, flat_specs, init_device, \
     init_flat, param_specs  # noqa: E402
@@ -51,15 +51,21 @@ def test_layouts_of_the_moe_family():
 
 
 def test_build_model_serves_moe_and_hybrid_and_refuses_4b():
-    for arch in ("arctic-480b", "kimi-k2-1t-a32b", "jamba-v0.1-52b"):
-        m = build_model(get_config(arch).reduced(), device="cpu")
-        assert isinstance(m, DecoderLM)
-    for family in ("ssm", "encdec", "vlm"):
-        cfg = ModelConfig(name=f"{family}-x", family=family, num_layers=2,
-                          d_model=8, num_heads=2, num_kv_heads=1, d_ff=8,
-                          vocab_size=16)
-        with pytest.raises(NotImplementedError, match=r"item 4b"):
-            build_model(cfg, device="cpu")
+    """Every family builds: a ``DecoderLM`` for each config but
+    Whisper's, an ``EncDecModel`` for it, and each family's training
+    batch exists."""
+    from repro_torch.data.synthetic import global_batch
+    from repro_torch.models import EncDecModel
+    for arch in list_archs():
+        cfg = get_config(arch).reduced()
+        m = build_model(cfg, device="cpu")
+        assert isinstance(m, EncDecModel if cfg.is_encdec else DecoderLM)
+        batch = global_batch(cfg, 0, 2, 16)
+        want = {"tokens", "labels"} | ({"frames"} if cfg.is_encdec else set()) \
+            | ({"patches"} if cfg.family == "vlm" else set())
+        assert batch.keys() == want, arch
+    assert {get_config(a).family for a in list_archs()} == {
+        "dense", "moe", "hybrid", "ssm", "encdec", "vlm"}
 
 
 @pytest.mark.parametrize("init", ["init_flat", "init_device"])

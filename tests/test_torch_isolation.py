@@ -55,7 +55,11 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.train.checkpoint", "repro_torch.train.optimizer",
               "repro_torch.train.step", "repro_torch.train.loop",
               "repro_torch.train.elastic", "repro_torch.data.synthetic",
-              "repro_torch.launch.variants", "repro_torch.launch.train"):
+              "repro_torch.launch.variants", "repro_torch.launch.train",
+              "repro_torch.models.xlstm", "repro_torch.models.encdec",
+              "repro_torch.configs.xlstm_350m",
+              "repro_torch.configs.whisper_base",
+              "repro_torch.configs.pixtral_12b"):
         assert m in res["modules"]
 
 

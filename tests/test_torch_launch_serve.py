@@ -19,7 +19,8 @@ from repro_torch.core.service import ImageService, \
     ServiceConfig  # noqa: E402
 from repro_torch.core.store import ChunkStore  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import DecoderLM, build_model, init_flat  # noqa: E402
+from repro_torch.models import DecoderLM, EncDecModel, build_model, \
+    init_flat  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
 REF = Path(__file__).resolve().parents[1] / "src/repro/launch/serve.py"
@@ -57,7 +58,7 @@ def test_flags_match_the_reference():
 
 
 def _direct_tokens(cfg, requests, max_new, seed=0):
-    model = DecoderLM(cfg, device="cpu").load_flat(init_flat(cfg, seed))
+    model = build_model(cfg, device="cpu").load_flat(init_flat(cfg, seed))
     eng = ServeEngine(model, max_batch=4, max_len=64)
     reqs = [Request(i, prompt=[1 + i, 2, 3], max_new=max_new)
             for i in range(requests)]
@@ -129,22 +130,16 @@ def test_store_image_no_reduced_restores_published_image(tmp_path,
 
 
 def test_build_model_builds_dense_and_refuses_other_families():
-    """Every registered config builds (the dense, MoE and hybrid
-    families); the families still to port raise, naming their queue
-    item."""
-    assert {"smollm-360m", "tinyllama-1.1b", "starcoder2-15b",
-            "mistral-nemo-12b", "arctic-480b", "kimi-k2-1t-a32b",
-            "jamba-v0.1-52b"} <= set(list_archs())
+    """Every registered config builds, the JAX registry's ten: a
+    ``DecoderLM`` for each family but the encoder-decoder one, whose
+    model is an ``EncDecModel``."""
+    from repro.configs.registry import list_archs as jax_archs
+    assert list_archs() == jax_archs()
     for arch in list_archs():
         cfg = get_config(arch)
-        assert cfg.family in ("dense", "moe", "hybrid")
         m = build_model(cfg.reduced(), device="cpu")
-        assert isinstance(m, DecoderLM) and m.device.type == "cpu"
-    ssm = ModelConfig(name="ssm-x", family="ssm", num_layers=1, d_model=8,
-                      num_heads=2, num_kv_heads=1, d_ff=8, vocab_size=16)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 1, item 4b"):
-        build_model(ssm, device="cpu")
+        assert isinstance(m, EncDecModel if cfg.is_encdec else DecoderLM)
+        assert m.device.type == "cpu"
 
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "kimi-k2-1t-a32b",
@@ -159,3 +154,20 @@ def test_publish_path_serves_moe_and_hybrid(arch, capsys):
     assert out["served"] == out["requests"] == 3
     assert out["tokens"] == _direct_tokens(get_config(arch).reduced(), 3, 3)
     assert "served 3/3 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch,publish", [
+    ("xlstm-350m", True), ("whisper-base", True), ("whisper-base", False),
+    ("pixtral-12b", True)])
+def test_launcher_serves_the_xlstm_encdec_and_vlm_families(arch, publish,
+                                                           capsys):
+    """The reduced launcher of xlstm-350m, whisper-base (an
+    ``EncDecModel``, imaged by ``--publish`` or by ``create_image`` of
+    ``init_flat``) and pixtral-12b serves every request with the tokens
+    of the same weights loaded directly."""
+    argv = ["--arch", arch, "--requests", "3", "--max-new", "3",
+            "--l2-nodes", "0", *CPU]
+    out = serve.main(argv + (["--publish"] if publish else []))
+    assert out["config"] == arch + "-reduced"
+    assert out["served"] == out["requests"] == 3
+    assert out["tokens"] == _direct_tokens(get_config(arch).reduced(), 3, 3)

@@ -63,6 +63,24 @@ def test_reduced_run_then_resume(tmp_path, capsys):
     assert np.isfinite(second[0]["loss"])
 
 
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-base",
+                                  "pixtral-12b"])
+def test_reduced_run_then_resume_of_the_other_families(arch, tmp_path,
+                                                       capsys):
+    """The xLSTM, encoder-decoder (frames) and VLM (patches) families
+    train, checkpoint and resume through the launcher."""
+    argv = ["--arch", arch, "--reduced", "--steps", "2", "--ckpt-every",
+            "2", "--batch", "2", "--seq", "16", "--store", str(tmp_path),
+            "--device", "cpu"]
+    first = train.main(argv)
+    assert [h["step"] for h in first] == [2]
+    second = train.main(argv + ["--resume"])
+    assert [h["step"] for h in second] == [4]
+    text = capsys.readouterr().out.splitlines()
+    assert f"training {arch} [baseline] from step 2" in text
+    assert np.isfinite(second[0]["loss"])
+
+
 def test_chunked_loss_variant_refuses_the_default_seq():
     """`chunked_loss` sets a 512-token loss chunk; the launcher's default
     --seq 64 is no multiple of it, and the run must stop, not train on
@@ -108,6 +126,20 @@ def test_global_batch_matches_jax(arch):
                 np.testing.assert_array_equal(got[k], want[k])
 
 
+def test_applicable_shapes_match_the_reference():
+    """``is_subquadratic`` and ``applicable_shapes`` of every arch equal
+    the JAX package's: ``long_500k`` for the SSM and hybrid families."""
+    from repro.configs.base import applicable_shapes as japplicable
+    from repro_torch.configs import applicable_shapes, list_archs
+    for arch in list_archs():
+        cfg, jcfg = get_config(arch), jax_config(arch)
+        assert cfg.is_subquadratic == jcfg.is_subquadratic, arch
+        assert [s.name for s in applicable_shapes(cfg)] == \
+            [s.name for s in japplicable(jcfg)], arch
+    assert "long_500k" in [s.name for s in applicable_shapes(
+        get_config("xlstm-350m"))]
+
+
 def test_prefetcher_yields_steps_in_order():
     cfg = get_config("smollm-360m").reduced()
     pf = Prefetcher(lambda s: global_batch(cfg, s, 2, 8), start_step=3)
@@ -117,6 +149,7 @@ def test_prefetcher_yields_steps_in_order():
         np.testing.assert_array_equal(batch["tokens"],
                                       global_batch(cfg, want, 2, 8)["tokens"])
     pf.stop()
-    vlm = get_config("smollm-360m").reduced(family="vlm")
-    with pytest.raises(NotImplementedError, match="4b"):
-        global_batch(vlm, 0, 1, 4)
+    vlm = get_config("pixtral-12b").reduced()
+    batch = global_batch(vlm, 0, 1, 12)
+    assert batch["tokens"].shape == (1, 12 - vlm.num_patches)
+    assert batch["patches"].shape == (1, vlm.num_patches, vlm.d_model)
