@@ -40,17 +40,39 @@ Phases (any failure exits non-zero):
    starts empty so every chunk comes from the origin (fused kernel), a
    byte-identity check of the restored
    tree, and a ``ServeEngine`` answering 4 requests whose greedy tokens
-   must equal those of the same weights loaded without the image.
+   must equal those of the same weights loaded without the image. The
+   paper's Fig. 11 from the origin: the cold start's simulated
+   ``sim_serial_s`` must equal fetched x 36 ms + L1 probes x 2 us
+   (to 1e-9) and be at least 4x its ``sim_pipelined_s`` at the policy's
+   parallelism; ``read_lat`` (``e2e.read``) holds one sample per fetched
+   chunk (p50/p99 printed). Then an engine of ``max_len`` 8 serves a
+   10-token prompt beside a 2-token one: the batch finishes and the
+   short one's tokens equal its run alone (ROADMAP.md §3, fault 1).
 4. L2 path — on phase 3's image: worker A (``l2_nodes=12``, 4-of-5
-   stripes) restores with an empty L1, so every chunk comes from the
-   origin and fills the L2 once (one parity launch per origin GET);
-   then one L2 node crashes, and worker B, with an empty L1 and A's L2,
+   stripes, latencies seeded from ``--seed``) restores with an empty
+   L1, so every chunk comes from the origin and fills the L2 once (one
+   parity launch per origin GET). (4b, the paper's Fig. 9) Every
+   distinct chunk name is read from the healthy L2 once through
+   ``get_chunk`` (4-of-5) and once through ``get_chunk_unreplicated``
+   (4-of-4), each ciphertext checked against its name: p99.9 of 4-of-5
+   must lie below 4-of-4's and p99 not above (p50/p90/p99/p99.9 and the
+   tail cut printed); with ``cache-000`` crashed, every name once each
+   way: 4-of-5 (one hedged batch) serves every chunk, the GF(256) kernel
+   rebuilding those that lost a data stripe; 4-of-4 misses exactly the
+   names whose first four ring nodes hold ``cache-000`` (apart from
+   reads whose stripe passed the 20 ms deadline, counted); the node is
+   healed. Then
+   one L2 node crashes, and worker B, with an empty L1 and A's L2,
    cold-starts SmolLM-360M staged: no origin GET, every distinct chunk
    an L2 hit, the chunks that lost a data stripe rebuilt by the GF(256)
-   kernel, the restored tree and the greedy tokens equal to phase 3's.
-   A third worker restores streamed from the same L2 (byte check). The
-   GF(256) kernel is then timed at the largest erasure-signature group
-   of B's reconstruction.
+   kernel, the restored tree and the greedy tokens equal to phase 3's;
+   B's ``sim_pipelined_s`` is printed beside phase 3's (Fig. 11, the L2
+   against the origin), with the L2's ``hit_rate`` and ``l2.fetch``
+   summary. A third worker restores streamed from the same L2 (byte
+   check). The L2 is then flushed, and a fourth worker's restore must
+   make one origin GET per distinct chunk (byte check). The GF(256)
+   kernel is then timed at the largest erasure-signature group of B's
+   reconstruction.
 5. peer storm — on phase 3's image, a cold-start storm through the peer
    tier with a flaky origin (``FaultyStore``, 2% transient GET errors):
    workers 0-3, each an ``ImageService`` with an empty 256 MiB L1, no
@@ -289,6 +311,16 @@ KIB512 = 512 << 10
 # (core.decode.KERNEL_TILE_BYTES), so their numbers stay comparable
 # with runs from before "auto" autotuned; phase 7 leaves it at "auto"
 TILE = 128 << 20
+# phase 3: the engine's max_len for a prompt of max_len + 2 tokens
+# beside a 2-token one (ROADMAP.md §3, fault 1)
+PAST_MAX_LEN = 8
+# phase 4b: reads of every distinct chunk through the healthy L2, each
+# way (4-of-5 and 4-of-4); then once each way with a node down. One
+# healthy pass, not two: the host's LRU-K eviction, which runs on every
+# stripe a read promotes from flash into a full memory tier, makes each
+# pair of reads cost ~8 ms (scripts/profile_l2_host.py's cost), and two
+# passes would take this phase past a minute
+FIG9_PASSES = 1
 # phase 7: prefill at SmolLM-360M's full width (bfloat16) against prefill
 # by decoding: greedy tokens equal and the last-position logits within
 # PREFILL_BF16_TOL x max |logit|. The two round different bfloat16 sums
@@ -1050,7 +1082,9 @@ def phase_main_path(seed: int, kernels, tmp: Path) -> tuple:
         "origin_fetches")})
     log("cold start:", json.dumps({k: out[k] for k in cs if k in out}))
 
+    # the cold start's reader (the service caches one per session)
     handle = svc.open(blob, key)
+    out["sim"] = check_sim_origin(handle, cs)
     restored = handle.restore_tree()
     got = tree_digests(restored)
     check(got == want, "restored tree differs from the published one")
@@ -1083,11 +1117,85 @@ def phase_main_path(seed: int, kernels, tmp: Path) -> tuple:
         f"the image-free model's; first: {reqs[0].out}")
     out["peak_device_GB"] = torch.cuda.max_memory_allocated() / 1e9
     out["launches"] = launches
+    out["past_max_len"] = check_past_max_len(model, prompts[0][:2])
     svc.close()
     ctx = {"store": store, "blob": blob, "key": key, "want": want,
            "unique_chunks": st.unique_chunks, "prompts": prompts,
-           "tokens": [r.out for r in reqs], "flat": flat}
+           "tokens": [r.out for r in reqs], "flat": flat,
+           "sim": out["sim"]}
     return out, ctx
+
+
+def check_sim_origin(handle, cs: dict) -> dict:
+    """Fig. 11 from the origin: the streamed cold start's simulated
+    serial and pipelined seconds. Every distinct chunk probed the empty
+    L1 once and came from the origin, so the serial figure is fetched x
+    ``ORIGIN_LAT_S`` + probes x ``L1_PROBE_S`` (no retry policy is set),
+    and pipelining at the policy's parallelism must cut it at least 4x
+    (the reference's gate); ``read_lat`` holds one sample per fetched
+    chunk."""
+    from repro_torch.core.blockdev import L1_PROBE_S, ORIGIN_LAT_S
+
+    reader = handle.reader
+    lb = reader.last_batch
+    probes = len(handle.manifest.unique_names)
+    check("sim_serial_s" in lb and "sim_pipelined_s" in lb,
+          "the cold start's last_batch lacks sim_serial_s/sim_pipelined_s")
+    check(cs["sim_serial_s"] == lb["sim_serial_s"],
+          "cold_start's stats disagree with the reader's last_batch")
+    fetched = lb["fetched"]
+    check(fetched == probes == cs["origin_fetches"],
+          f"{fetched} chunks fetched, {probes} distinct, "
+          f"{cs['origin_fetches']} origin GETs")
+    want = fetched * ORIGIN_LAT_S + probes * L1_PROBE_S
+    check(abs(lb["sim_serial_s"] - want) <= 1e-9,
+          f"sim_serial_s {lb['sim_serial_s']!r} != {want!r}")
+    ratio = lb["sim_serial_s"] / lb["sim_pipelined_s"]
+    check(ratio >= 4.0, f"simulated serial/pipelined {ratio:.3f} < 4 at "
+          f"parallelism {lb['parallelism']}")
+    summ = reader.read_lat.summary()
+    check(summ["n"] == fetched, f"read_lat holds {summ['n']} samples for "
+          f"{fetched} fetched chunks")
+    out = {"fetched": fetched, "l1_probes": probes,
+           "parallelism": lb["parallelism"],
+           "sim_serial_s": lb["sim_serial_s"],
+           "sim_pipelined_s": lb["sim_pipelined_s"], "ratio": ratio,
+           "read_lat_n": summ["n"], "read_lat_p50_s": summ["p50"],
+           "read_lat_p99_s": summ["p99"]}
+    log("Fig. 11 from the origin:", json.dumps(out))
+    return out
+
+
+def check_past_max_len(model, short: list) -> dict:
+    """One prompt longer than the engine's ``max_len`` beside one in
+    range (ROADMAP.md §3, fault 1): the KV-cache writes past the last
+    row are dropped, as the reference's scatter drops them, so the batch
+    finishes and the in-range slot's tokens equal a run without the
+    long request."""
+    import torch
+
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    def serve(prompts):
+        eng = ServeEngine(model, max_batch=2, max_len=PAST_MAX_LEN)
+        reqs = [Request(i, prompt=p, max_new=3)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        check(all(r.done for r in reqs), "a request past max_len did not "
+              "finish")
+        return [r.out for r in reqs]
+    long = list(range(1, PAST_MAX_LEN + 3))
+    both = serve([long, short])
+    alone = serve([short])
+    check(both[1] == alone[0], f"the in-range slot's tokens {both[1]} "
+          f"differ from its run alone {alone[0]}")
+    out = {"max_len": PAST_MAX_LEN, "long_prompt": len(long),
+           "long_tokens": both[0], "short_tokens": both[1]}
+    log("past max_len:", json.dumps(out))
+    return out
 
 
 def tree_digests(tree: dict) -> dict:
@@ -1099,11 +1207,14 @@ def tree_digests(tree: dict) -> dict:
 
 # ------------------------------------------------------------- phase 4
 
-def phase_l2_path(kernels, ctx: dict) -> tuple:
-    """Worker A fills a 12-node L2 from the origin; one node crashes;
-    worker B cold-starts from the L2 alone (staged), and a third worker
-    restores streamed from it. Returns (summary, the largest group that
-    reached the GF(256) hook as (matrix, width))."""
+def phase_l2_path(seed: int, kernels, ctx: dict) -> tuple:
+    """Worker A fills a 12-node L2 (latency model seeded from `seed`)
+    from the origin; Fig. 9 runs on it (``phase_fig9``); one node
+    crashes; worker B cold-starts from the L2 alone (staged), and a
+    third worker restores streamed from it; the L2 is flushed and a
+    fourth worker's restore goes back to the origin. Returns (summary,
+    the largest group that reached the GF(256) hook as (matrix,
+    width))."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1124,7 +1235,8 @@ def phase_l2_path(kernels, ctx: dict) -> tuple:
 
     # worker A: empty L1, empty L2 -> every chunk from the origin
     a = ImageService(store, ServiceConfig(device="cuda", root="r0",
-                                          l2_nodes=12, max_batch_bytes=TILE))
+                                          l2_nodes=12, l2_seed=seed,
+                                          max_batch_bytes=TILE))
     ha = a.open(blob, key)
     before = ha.counters.get("read.origin_fetches")
     t0 = time.perf_counter()
@@ -1143,6 +1255,9 @@ def phase_l2_path(kernels, ctx: dict) -> tuple:
     log(f"L2 fill: worker A restored in {out['fill_restore_s']:.2f} s, "
         f"{fills:.0f} origin GETs, {kernels.LAUNCHES['parity']} parity "
         "launches")
+
+    out["fig9"] = phase_fig9(kernels, a.l2, ha.manifest.unique_names,
+                             ha.manifest.chunk_size)
 
     a.l2.set_fault("cache-000", FaultPlan.crashed())
     groups = []
@@ -1172,7 +1287,7 @@ def phase_l2_path(kernels, ctx: dict) -> tuple:
     l2c = {k: COUNTERS.get(k) - c0[k] for k in l2_names}
     out.update({f"b_{k}": cs[k] for k in (
         "load_seconds", "restore_seconds", "fetch_wall_s", "decode_wall_s",
-        "origin_fetches", "l2_hits")})
+        "origin_fetches", "l2_hits", "sim_serial_s", "sim_pipelined_s")})
     out["b_l2"] = l2c
     out["b_gf256_launches"] = kernels.LAUNCHES["gf256"] - g0
     out["b_groups"] = sorted((w // STRIPE for _, w in groups), reverse=True)
@@ -1194,6 +1309,15 @@ def phase_l2_path(kernels, ctx: dict) -> tuple:
     check([r.out for r in reqs] == ctx["tokens"],
           "worker B's tokens differ from phase 3's")
     log("L2 serve: 4 requests, greedy tokens equal phase 3's")
+    origin = ctx["sim"]
+    out["fig11"] = {
+        "origin_sim_pipelined_s": origin["sim_pipelined_s"],
+        "l2_sim_pipelined_s": cs["sim_pipelined_s"],
+        "origin_sim_serial_s": origin["sim_serial_s"],
+        "l2_sim_serial_s": cs["sim_serial_s"],
+        "l2_hit_rate": a.l2.hit_rate,
+        "l2_fetch": a.l2.fetch_lat.summary()}
+    log("Fig. 11, the L2 against the origin:", json.dumps(out["fig11"]))
     del engine, model
     b.close()
 
@@ -1212,10 +1336,134 @@ def phase_l2_path(kernels, ctx: dict) -> tuple:
         f"{out['c_l2_hits']} L2 hits, {out['c_origin_fetches']:.0f} origin "
         "GETs, byte-identical")
     c.close()
+
+    # a flushed L2 holds nothing: a fourth worker goes back to the origin
+    a.l2.flush()
+    d = ImageService(store, ServiceConfig(device="cuda", root="r0",
+                                          max_batch_bytes=TILE), l2=a.l2)
+    hd = d.open(blob, key)
+    before = hd.counters.get("read.origin_fetches")
+    t0 = time.perf_counter()
+    got = tree_digests(hd.restore_tree())
+    out["d_restore_s"] = time.perf_counter() - t0
+    out["d_origin_fetches"] = hd.counters.get("read.origin_fetches") - before
+    check(got == ctx["want"], "the restore after flush() differs from "
+          "phase 3's")
+    check(out["d_origin_fetches"] == unique,
+          f"after flush() a restore made {out['d_origin_fetches']:.0f} "
+          f"origin GETs for {unique} distinct chunks")
+    log(f"L2 flushed: a restore took {out['d_restore_s']:.2f} s, "
+        f"{out['d_origin_fetches']:.0f} origin GETs, byte-identical")
+    d.close()
     a.close()
     out["launches"] = dict(kernels.LAUNCHES)
     largest = max(groups, key=lambda g: g[1])
     return out, largest
+
+
+def _percentiles(xs) -> dict:
+    import numpy as np
+    return {f"p{q:g}_us": float(np.percentile(xs, q)) * 1e6
+            for q in (50, 90, 99, 99.9)}
+
+
+def phase_fig9(kernels, l2, names: list, chunk_len: int) -> dict:
+    """Phase 4b, the paper's Fig. 9, on worker A's filled L2: every
+    distinct chunk name read ``FIG9_PASSES`` times through ``get_chunk``
+    (4-of-5: the 4th-fastest of 5 stripes) and through
+    ``get_chunk_unreplicated`` (4-of-4: the slowest of the 4 data
+    stripes), interleaved as the reference's benchmark reads them; each
+    ciphertext returned must hash to its name. p99.9 of 4-of-5 must lie
+    below 4-of-4's and p99 not above (the reference's
+    ``test_erasure_beats_kofk_tail``). A 4-of-4 read misses only when a
+    stripe passed the stripe deadline (``l2.stripe_timeouts`` rose in
+    that read). Then ``cache-000`` crashes and every name is read once
+    each way: 4-of-5 in one hedged batch, as worker B's staged restore
+    reads, which returns every chunk, the GF(256) kernel rebuilding
+    those that lost a data stripe, and 4-of-4 name by name, which
+    misses exactly the names whose first four ring nodes hold
+    ``cache-000``, counted from the ring beforehand, besides reads with
+    a timed-out stripe. The node is healed before returning."""
+    from repro_torch.core.telemetry import COUNTERS
+
+    def verified(name, ct) -> bool:
+        check(ct is None or hashlib.sha256(ct).hexdigest() == name,
+              f"the L2 returned a ciphertext that does not hash to {name}")
+        return ct is not None
+
+    def timeouts() -> float:
+        return COUNTERS.get("l2.stripe_timeouts")
+
+    out = {"names": len(names), "passes": FIG9_PASSES}
+    t0 = time.perf_counter()
+    ec, kk = [], []
+    kk_misses = 0
+    for _ in range(FIG9_PASSES):
+        for name in names:
+            lat, ct = l2.get_chunk(name, chunk_len)
+            check(verified(name, ct), f"4-of-5 missed {name} on a healthy "
+                  "L2")
+            ec.append(lat)
+            before = timeouts()
+            lat, ct = l2.get_chunk_unreplicated(name, chunk_len)
+            kk.append(lat)
+            if not verified(name, ct):
+                check(timeouts() > before, f"4-of-4 missed {name} on a "
+                      "healthy L2 with no stripe past the deadline")
+                kk_misses += 1
+    out["healthy_s"] = time.perf_counter() - t0
+    out["4of5"], out["4of4"] = _percentiles(ec), _percentiles(kk)
+    out["tail_cut"] = {q: out["4of4"][q] / out["4of5"][q]
+                       for q in out["4of5"]}
+    out["4of4_timeout_misses"] = kk_misses
+    log("Fig. 9, healthy L2:", json.dumps(out))
+    check(out["4of5"]["p99.9_us"] < out["4of4"]["p99.9_us"],
+          "p99.9 of 4-of-5 is not below 4-of-4's")
+    check(out["4of5"]["p99_us"] <= out["4of4"]["p99_us"],
+          "p99 of 4-of-5 is above 4-of-4's")
+
+    victim = "cache-000"
+    k = l2.coder.k
+    lost = {n for n in names
+            if victim in l2.ring.lookup(n, count=l2.coder.n)[:k]}
+    l2.fail_node(victim)
+    g0 = kernels.LAUNCHES["gf256"]
+    t0 = time.perf_counter()
+    down = []
+    for name, (lat, ct) in l2.get_chunks(names, chunk_len,
+                                         hedge=True).items():
+        check(verified(name, ct), f"4-of-5 missed {name} with one node "
+              "down")
+        down.append(lat)
+    out["crashed_gf256_launches"] = kernels.LAUNCHES["gf256"] - g0
+    kk_missed, unexplained = set(), 0
+    for name in names:
+        before = timeouts()
+        _, ct = l2.get_chunk_unreplicated(name, chunk_len)
+        if not verified(name, ct):
+            kk_missed.add(name)
+            if name not in lost:
+                check(timeouts() > before, f"4-of-4 missed {name}, whose "
+                      f"data stripes avoid {victim}, with no stripe past "
+                      "the deadline")
+                unexplained += 1
+    l2.fail_node(victim, False)
+    out["crashed_s"] = time.perf_counter() - t0
+    out["crashed_4of5"] = _percentiles(down)
+    out["predicted_4of4_misses"] = len(lost)
+    out["4of4_misses"] = len(kk_missed)
+    out["4of4_timeout_misses_crashed"] = unexplained
+    log(f"Fig. 9, {victim} down:", json.dumps(
+        {k_: v for k_, v in out.items() if k_.startswith(("crashed",
+                                                          "predicted",
+                                                          "4of4_"))}))
+    check(lost <= kk_missed, f"4-of-4 served {len(lost - kk_missed)} of "
+          f"the {len(lost)} names whose data stripes include {victim}")
+    check(len(kk_missed) == len(lost) + unexplained,
+          f"4-of-4 missed {len(kk_missed)} names, predicted {len(lost)}")
+    check(out["crashed_gf256_launches"] > 0, "the GF(256) kernel did not "
+          f"run with {victim} down")
+    return out
 
 
 # ------------------------------------------------------------- phase 5
@@ -3190,7 +3438,7 @@ def main() -> int:
         erasure_rows = phase_erasure_kernels(rng, kernels)
         rows["parity"] = erasure_rows["parity"]
         main_path, ctx = phase_main_path(args.seed, kernels, tmp)
-        l2_path, largest = phase_l2_path(kernels, ctx)
+        l2_path, largest = phase_l2_path(args.seed, kernels, ctx)
         rows["gf256"] = time_gf256(rng, *largest,
                                    erasure_rows["gf256_check_err"])
         # phase 3's launches are those of two restores

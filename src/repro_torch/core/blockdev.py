@@ -48,6 +48,18 @@ stores that take one, and ``RetryPolicy.call`` around the attempt.
 ``origin_delay_s`` optionally sleeps that long in each origin GET (a
 simulated origin round trip; 0 by default).
 
+Simulated latency (the paper's Fig. 11), bookkeeping only: every tier
+returns the latency it simulates (an L1 probe ``L1_PROBE_S``, a peer
+transfer, an L2 stripe wave, an origin GET ``ORIGIN_LAT_S`` after the
+L2 miss it follows), and the reader carries it with each chunk. Each
+read chunk lands in ``read_lat`` (``e2e.read``); each staged or
+streamed batch records ``pipelined_latency`` of its fetched chunks at
+its ``parallelism``, plus its L1 probes, in ``batch_lat``
+(``e2e.read_batch``), and ``last_batch`` gives ``sim_serial_s`` (the
+same chunks one after another) beside ``sim_pipelined_s``. A
+single-flight follower takes its leader's latency. Nothing sleeps and
+nothing syncs a device for it.
+
 ``CowBlockDevice`` adds the write path: writes land in an overlay of
 4 KiB pages encrypted with the overlay key, marked in a dirty bitmap;
 base chunks stay immutable, so every tier shares them. Reads take dirty
@@ -59,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import heapq
 import inspect
 import itertools
 import threading
@@ -73,9 +86,11 @@ from repro_torch.core.decode import BatchDecoder
 from repro_torch.core.layout import ranges_to_chunks
 from repro_torch.core.manifest import ZERO_CHUNK, Manifest
 from repro_torch.core.retry import BreakerOpenError, is_retryable
-from repro_torch.core.telemetry import COUNTERS
+from repro_torch.core.telemetry import COUNTERS, LatencyRecorder
 
 PAGE = 4096
+ORIGIN_LAT_S = 36e-3          # paper: S3 origin median 36 ms (simulated)
+L1_PROBE_S = 2e-6
 DEFAULT_PARALLELISM = 8
 DEFAULT_QUEUE_DEPTH = 32      # streamed hand-off queue bound (chunks)
 
@@ -91,14 +106,30 @@ def _pinned(fn):
     return wrapped
 
 
+def pipelined_latency(lats, lanes: int) -> float:
+    """Wall-clock of running `lats` on `lanes` parallel workers, each
+    job going to the least-loaded lane in submission order (what a
+    thread pool does with equal-priority work). `lanes` is clamped to
+    [1, len(lats)]; no jobs take 0.0."""
+    lats = list(lats)
+    if not lats:
+        return 0.0
+    lanes = max(1, min(int(lanes), len(lats)))
+    heap = [0.0] * lanes
+    for lat in lats:
+        heapq.heapreplace(heap, heap[0] + lat)
+    return max(heap)
+
+
 class _Flight:
     """In-flight fetch for one chunk name (single-flight)."""
 
-    __slots__ = ("event", "ciphertext", "error")
+    __slots__ = ("event", "ciphertext", "sim_lat", "error")
 
     def __init__(self):
         self.event = threading.Event()
         self.ciphertext = None
+        self.sim_lat = 0.0
         self.error = None
 
 
@@ -116,16 +147,19 @@ class FlightTable:
 
 
 class FetchedBatch:
-    """Output of stage F: ciphertexts and the index bookkeeping stage D
-    needs to fan plaintexts back out."""
+    """Output of stage F: ciphertexts, each name's simulated fetch
+    latency, and the index bookkeeping stage D needs to fan plaintexts
+    back out."""
 
-    __slots__ = ("by_name", "ciphertexts", "zero_indices", "l1_hits",
-                 "l2_hits", "sink")
+    __slots__ = ("by_name", "ciphertexts", "lats", "zero_indices",
+                 "l1_lat", "l1_hits", "l2_hits", "sink")
 
     def __init__(self, sink: BoundedQueue | None = None):
         self.by_name: dict[str, list[int]] = {}     # name -> chunk indices
         self.ciphertexts: dict[str, bytes] = {}
+        self.lats: dict[str, float] = {}            # simulated fetch lat
         self.zero_indices: list[int] = []
+        self.l1_lat = 0.0                           # this batch's L1 probes
         self.l1_hits = 0
         self.l2_hits = 0
         self.sink = sink          # streamed hand-off; None = staged
@@ -151,6 +185,8 @@ class TieredReader:
         self.counters = counters if counters is not None else COUNTERS
         # a ``gc.RootPinRegistry``: every public read pins ``self.root``
         self.pins = pins
+        self.read_lat = LatencyRecorder("e2e.read")
+        self.batch_lat = LatencyRecorder("e2e.read_batch")
         self.last_batch: dict = {}
         self._refs = {c.index: c for c in manifest.chunks}
         table = flights if flights is not None else FlightTable()
@@ -227,11 +263,11 @@ class TieredReader:
                     raise
                 self.counters.inc("retry.integrity_refetches")
 
-    def _fetch_cipher(self, ref) -> bytes:
-        """Ciphertext of `ref` from the peer mesh, else L2, else origin
-        (which fills the L2), single-flighted by chunk name; what came
-        from the L2 or the origin is published to the mesh. L1 is probed
-        by callers."""
+    def _fetch_cipher(self, ref) -> tuple[bytes, float]:
+        """(ciphertext, simulated latency) of `ref` from the peer mesh,
+        else L2, else origin (which fills the L2), single-flighted by
+        chunk name; what came from the L2 or the origin is published to
+        the mesh. L1 is probed by callers."""
         with self._flight_lock:
             flight = self._flights.get((self.root, ref.name))
             leader = flight is None
@@ -242,27 +278,31 @@ class TieredReader:
             self.counters.inc("read.singleflight_dedup")
             if flight.error is not None:
                 raise flight.error
-            return flight.ciphertext
+            return flight.ciphertext, flight.sim_lat
         try:
             # (a flight may have backfilled L1)
             ct = self.l1.peek(ref.name) if self.l1 is not None else None
+            lat = L1_PROBE_S if ct is not None else 0.0
             src = None
             if ct is None and self.peer is not None:
                 # a miss leaves this worker leading the mesh flight: the
                 # put_chunk or abandon below settles the lease
-                _, ct = self.peer.get_chunk(ref.name, self.m.chunk_size)
+                plat, ct = self.peer.get_chunk(ref.name, self.m.chunk_size)
+                lat += plat
                 if ct is not None:
                     self.counters.inc("read.peer_hits")
                     if self.l1 is not None:
                         self.l1.put(ref.name, ct)
             if ct is None and self.l2 is not None:
-                _, ct = self.l2.get_chunk(ref.name, self.m.chunk_size)
+                l2lat, ct = self.l2.get_chunk(ref.name, self.m.chunk_size)
+                lat += l2lat
                 if ct is not None:
                     src = "l2"
                     if self.l1 is not None:
                         self.l1.put(ref.name, ct)
             if ct is None:
                 ct = self._origin_get(ref.name)
+                lat += ORIGIN_LAT_S
                 src = "origin"
                 self.counters.inc("read.origin_fetches")
                 if self.l2 is not None:
@@ -272,7 +312,8 @@ class TieredReader:
             if src is not None and self.peer is not None:
                 self.peer.put_chunk(ref.name, ct, source=src)
             flight.ciphertext = ct
-            return ct
+            flight.sim_lat = lat
+            return ct, lat
         except Exception as e:
             flight.error = e
             if self.peer is not None:
@@ -289,23 +330,32 @@ class TieredReader:
     def fetch_chunk(self, index: int) -> bytes:
         """Plaintext of chunk `index` (serial, per-chunk oracle). A
         tampered ciphertext is evicted from every tier before the error
-        propagates or, with a retry policy, the chunk is refetched."""
+        propagates or, with a retry policy, the chunk is refetched. The
+        chunk's simulated latency (L1 probe and fetch) lands in
+        ``read_lat`` once it decrypts."""
         ref = self._refs[index]
         if ref.name == ZERO_CHUNK:
             self.counters.inc("read.zero_chunks")
             return b"\x00" * self.m.chunk_size
 
         def once() -> bytes:
-            ct = self.l1.get(ref.name) if self.l1 is not None else None
+            lat = 0.0
+            ct = None
+            if self.l1 is not None:
+                ct = self.l1.get(ref.name)
+                lat += L1_PROBE_S
             if ct is not None:
                 self.counters.inc("read.l1_hits")
             else:
-                ct = self._fetch_cipher(ref)
+                ct, fetch_lat = self._fetch_cipher(ref)
+                lat += fetch_lat
             try:
-                return convergent.decrypt_chunk(ct, ref.key, ref.sha256)
+                plain = convergent.decrypt_chunk(ct, ref.key, ref.sha256)
             except convergent.IntegrityError:
                 self._invalidate_name(ref.name)
                 raise
+            self.read_lat.record(lat)
+            return plain
         return self._integrity_rounds(once)
 
     # ------------------------------------------------- stage F: fetch I/O
@@ -334,10 +384,13 @@ class TieredReader:
         for name in fb.by_name:
             if self.l1 is not None:
                 ct = self.l1.get(name)
+                fb.l1_lat += L1_PROBE_S
                 if ct is not None:
                     fb.ciphertexts[name] = ct
+                    fb.lats[name] = L1_PROBE_S
                     fb.l1_hits += 1
                     self.counters.inc("read.l1_hits")
+                    self.read_lat.record(L1_PROBE_S)
                     if fb.sink is not None:
                         fb.sink.put((name, ct))
                     continue
@@ -361,17 +414,22 @@ class TieredReader:
             if flight.error is not None:
                 raise flight.error
             fb.ciphertexts[name] = flight.ciphertext
+            fb.lats[name] = flight.sim_lat
+            self.read_lat.record(flight.sim_lat)
             if fb.sink is not None:
                 fb.sink.put((name, flight.ciphertext))
         return fb
 
     def _resolve_flight(self, name: str, flight: _Flight, ct: bytes,
-                        fb: FetchedBatch, push: bool = True):
+                        lat: float, fb: FetchedBatch, push: bool = True):
         flight.ciphertext = ct
+        flight.sim_lat = lat
         with self._flight_lock:
             self._flights.pop((self.root, name), None)
         flight.event.set()
         fb.ciphertexts[name] = ct
+        fb.lats[name] = lat
+        self.read_lat.record(lat)
         # push AFTER event.set(): a flight's waiters never wait on sink
         # backpressure
         if push and fb.sink is not None:
@@ -415,12 +473,13 @@ class TieredReader:
             for name in lead:
                 ct = self.l1.peek(name) if self.l1 is not None else None
                 if ct is not None:
-                    self._resolve_flight(name, unresolved.pop(name), ct, fb)
+                    self._resolve_flight(name, unresolved.pop(name), ct,
+                                         L1_PROBE_S, fb)
                 else:
                     pending.append(name)
             peer_futs: dict = {}
             if pending and self.peer is not None:
-                def peer_ready(name, _lat, ct):
+                def peer_ready(name, lat, ct):
                     # inline for holder hits, on a peer pool thread for
                     # joined flights; the error path may have poisoned
                     # this name already
@@ -430,7 +489,7 @@ class TieredReader:
                     self.counters.inc("read.peer_hits")
                     if self.l1 is not None:
                         self.l1.put(name, ct)
-                    self._resolve_flight(name, flight, ct, fb)
+                    self._resolve_flight(name, flight, ct, lat, fb)
                 pending, peer_futs = self.peer.probe_chunks(
                     pending, self.m.chunk_size, peer_ready)
             if pending:
@@ -459,15 +518,17 @@ class TieredReader:
                       fb: FetchedBatch, unresolved: dict,
                       l2_hedge: bool | None = None):
         """The lower tiers for `pending` led names: one batched L2
-        fetch, then the parallel origin stage."""
-        if self.l2 is not None:
-            pending = self._l2_stage(pending, unresolved, fb, l2_hedge)
-        if pending:
-            self._origin_stage(pending, parallelism, unresolved, fb)
+        fetch, then the parallel origin stage. An origin GET's simulated
+        latency adds to the L2 miss before it."""
+        l2_lat = self._l2_stage(pending, unresolved, fb, l2_hedge) \
+            if self.l2 is not None else dict.fromkeys(pending, 0.0)
+        if l2_lat:
+            self._origin_stage(l2_lat, parallelism, unresolved, fb)
 
     def _l2_stage(self, pending: list, unresolved: dict, fb: FetchedBatch,
-                  l2_hedge: bool | None) -> list:
-        """One batched L2 fetch of `pending` names; returns the misses.
+                  l2_hedge: bool | None) -> dict:
+        """One batched L2 fetch of `pending` names; returns the misses
+        as {name: simulated latency of the miss}, in `pending` order.
         Streamed (a sink and an L2 that takes ``on_ready``): each chunk
         resolves and feeds the sink the moment its k-th stripe is
         rebuilt, instead of after the whole stripe wave."""
@@ -475,33 +536,34 @@ class TieredReader:
         kw = {"hedge": l2_hedge} \
             if self._l2_hedges and l2_hedge is not None else {}
 
-        def hit(name, _lat, ct):
+        def hit(name, lat, ct):
             fb.l2_hits += 1
             if self.l1 is not None:
                 self.l1.put(name, ct)
             if self.peer is not None:
                 self.peer.put_chunk(name, ct, source="l2")
-            self._resolve_flight(name, unresolved.pop(name), ct, fb)
+            self._resolve_flight(name, unresolved.pop(name), ct, lat, fb)
 
         if self._l2_streams and fb.sink is not None:
             res = self.l2.get_chunks(pending, cs, on_ready=hit, **kw)
-            return [n for n in pending if res[n][1] is None]
+            return {n: res[n][0] for n in pending if res[n][1] is None}
         res = self.l2.get_chunks(pending, cs, **kw)
-        still = []
+        still = {}
         for name in pending:
             lat, ct = res[name]
             if ct is None:
-                still.append(name)
+                still[name] = lat
             else:
                 hit(name, lat, ct)
         return still
 
-    def _origin_stage(self, pending: list, parallelism: int,
+    def _origin_stage(self, l2_lat: dict, parallelism: int,
                       unresolved: dict, fb: FetchedBatch):
-        """Parallel origin fetch of `pending` names, at most
-        `parallelism` in flight. A failed fetch poisons only its own
-        flight; never-started names inherit the first error, which is
-        raised once the stage drains."""
+        """Parallel origin fetch of the names of `l2_lat` ({name:
+        simulated latency of its L2 miss}), at most `parallelism` in
+        flight. A failed fetch poisons only its own flight; never-started
+        names inherit the first error, which is raised once the stage
+        drains."""
         def fetch_origin(name: str):
             ct = self._origin_get(name)
             self.counters.inc("read.origin_fetches")
@@ -511,11 +573,11 @@ class TieredReader:
                 self.l1.put(name, ct)
             if self.peer is not None:
                 self.peer.put_chunk(name, ct, source="origin")
-            return ct
+            return ct, l2_lat[name] + ORIGIN_LAT_S
 
         first_err = None
-        workers = max(1, min(int(parallelism), len(pending)))
-        name_iter = iter(pending)
+        workers = max(1, min(int(parallelism), len(l2_lat)))
+        name_iter = iter(l2_lat)
         pool = self._fetch_pool.get(workers)
         fut_name = {pool.submit(fetch_origin, n): n
                     for n in itertools.islice(name_iter, workers)}
@@ -525,7 +587,7 @@ class TieredReader:
             for fut in done:
                 name = fut_name.pop(fut)
                 try:
-                    ct = fut.result()
+                    ct, lat = fut.result()
                 except BaseException as e:
                     self._poison_flight(name, unresolved.pop(name), e)
                     if first_err is None:
@@ -533,8 +595,8 @@ class TieredReader:
                     continue
                 # resolve the whole wave (and submit replacements) before
                 # any sink push: backpressure must not delay landed bytes
-                self._resolve_flight(name, unresolved.pop(name), ct, fb,
-                                     push=False)
+                self._resolve_flight(name, unresolved.pop(name), ct, lat,
+                                     fb, push=False)
                 pushes.append((name, ct))
                 if first_err is None:
                     nxt = next(name_iter, None)
@@ -751,6 +813,12 @@ class TieredReader:
 
     def _record_batch(self, fb, parallelism, t0, fetch_wall, decode_wall,
                       dec, streamed: bool):
+        """``last_batch`` of a staged or streamed batch, and its
+        simulated wall in ``batch_lat``: the L1 probes, then the fetched
+        chunks (L1 hits excluded) on `parallelism` lanes."""
+        fetch_lats = [lat for lat in fb.lats.values() if lat > L1_PROBE_S]
+        sim_wall = fb.l1_lat + pipelined_latency(fetch_lats, parallelism)
+        self.batch_lat.record(sim_wall)
         nchunks = len(fb.zero_indices) + sum(len(v)
                                              for v in fb.by_name.values())
         self.counters.add("read.batched_chunks", nchunks)
@@ -759,6 +827,8 @@ class TieredReader:
             "fetched": len(fb.by_name) - fb.l1_hits,
             "l2_hits": fb.l2_hits,
             "parallelism": int(parallelism),
+            "sim_serial_s": fb.l1_lat + sum(fetch_lats),
+            "sim_pipelined_s": sim_wall,
             "wall_s": time.perf_counter() - t0,
             "fetch_wall_s": fetch_wall,
             "decode_wall_s": decode_wall,

@@ -39,6 +39,13 @@ Stripe requests go through a shared thread pool. The batched
 in streaming mode (``get_chunks(..., on_ready=...)``) each chunk is
 instead rebuilt with the per-chunk numpy ``decode`` the moment its k-th
 stripe lands and handed to the callback.
+
+Measurement and control: every hit's latency lands in ``fetch_lat``
+(``l2.fetch``) and each node's served and refused requests in its
+``get_lat``/``put_lat``; ``get_chunk_unreplicated`` is Fig. 9's 4-of-4
+read (all k data stripes, no parity) to hold the 4-of-5 tail against;
+``fail_node``, ``flush`` and ``hit_rate`` crash or heal a node, empty
+the cluster and read its hit rate.
 """
 from __future__ import annotations
 
@@ -53,7 +60,8 @@ from repro_torch.core.cache.hashring import HashRing, HotKeyTracker
 from repro_torch.core.cache.lru_k import LRUK
 from repro_torch.core.concurrency import LazyPool
 from repro_torch.core.erasure import ErasureCoder
-from repro_torch.core.telemetry import COUNTERS, QuantileWindow
+from repro_torch.core.telemetry import COUNTERS, LatencyRecorder, \
+    QuantileWindow
 
 DEFAULT_STRIPE_DEADLINE_S = 0.02   # << origin RTT; a timed-out stripe is
 #                                    cheaper than falling through to origin
@@ -146,15 +154,17 @@ class CacheNode:
     the SAME recorders as healthy ones (no hardcoded timeout constants),
     so fault-mode benchmarks report honest latency distributions."""
 
-    FLASH_EXTRA_S = 120e-6      # a flash-tier read's extra service time
-
     def __init__(self, name: str, mem_bytes: int, flash_bytes: int,
-                 rng: np.random.Generator):
+                 rng: np.random.Generator, latency: LatencyModel | None = None,
+                 flash_extra_s: float = 120e-6):
         self.name = name
         self.mem = LRUK(mem_bytes, k=2)
         self.flash = LRUK(flash_bytes, k=2)
-        self.latency = LatencyModel(rng)
+        self.latency = latency or LatencyModel(rng)
+        self.flash_extra_s = flash_extra_s     # a flash read's extra serve
         self.fault = FaultPlan.healthy()
+        self.get_lat = LatencyRecorder(f"{name}.get")
+        self.put_lat = LatencyRecorder(f"{name}.put")
         # one lock per node: parallel batched fetches hit different nodes
         # concurrently but each node serves its stripes serially (and the
         # numpy Generator behind the latency model is not thread-safe)
@@ -165,6 +175,15 @@ class CacheNode:
         """Switch this node's fault plan mid-flight (attribute assignment
         is atomic; in-flight requests keep the plan they read)."""
         self.fault = plan
+
+    @property
+    def failed(self) -> bool:
+        """The fault plan as a flag: anything but healthy."""
+        return self.fault.kind != FaultPlan.HEALTHY
+
+    @failed.setter
+    def failed(self, value: bool):
+        self.fault = FaultPlan.crashed() if value else FaultPlan.healthy()
 
     def _serve_sample(self, plan: FaultPlan) -> float:
         serve = self.latency.serve_sample()
@@ -190,6 +209,7 @@ class CacheNode:
                 # gone, recorded through the same recorder as served
                 # GETs so fault-mode benchmarks report honest latencies
                 lat = self.latency.net_sample()
+                self.get_lat.record(lat)
                 return (lat, None)
             serve = self._serve_sample(plan)
             if touch:
@@ -197,14 +217,15 @@ class CacheNode:
                 if v is None:
                     v = self.flash.get(key)
                     if v is not None:
-                        serve += self.FLASH_EXTRA_S
+                        serve += self.flash_extra_s
                         self.mem.put(key, v)       # promote
             else:
                 v = self.mem.peek(key)
                 if v is None:
                     v = self.flash.peek(key)
                     if v is not None:
-                        serve += self.FLASH_EXTRA_S
+                        serve += self.flash_extra_s
+            self.get_lat.record(serve)
             return (serve + self.latency.net_sample(), v)
 
     def remove(self, key: str):
@@ -220,6 +241,7 @@ class CacheNode:
         with self._lock:
             if plan.kind == FaultPlan.CRASHED:
                 lat = self.latency.net_sample()    # refused; write lost
+                self.put_lat.record(lat)
                 return lat
             # PUT: write path; lognormal body only (the Rust server's p99.99
             # stays < 4x median, Fig 10) plus a small writeback mode
@@ -233,6 +255,7 @@ class CacheNode:
                 serve *= 2.2                   # writeback stall mode (Fig 10)
             self.flash.put(key, value)
             self.mem.put(key, value)
+            self.put_lat.record(serve)
             return serve + self.latency.net_sample()
 
 
@@ -243,9 +266,11 @@ class DistributedCache:
     def __init__(self, num_nodes: int = 12, k: int = 4, n: int = 5,
                  mem_bytes: int = 64 << 20, flash_bytes: int = 512 << 20,
                  seed: int = 0, parity_fn=None, matmul_fn=None,
+                 stripe_parallelism: int | None = None,
                  stripe_deadline_s: float = DEFAULT_STRIPE_DEADLINE_S,
                  hedge_quantile: float | None = None,
-                 infection_threshold: int = 0, salt_count: int = 3):
+                 infection_threshold: int = 0, salt_count: int = 3,
+                 hot_window: int = 4096):
         self.rng = np.random.default_rng(seed)
         self.coder = ErasureCoder(k, n, parity_fn=parity_fn,
                                   matmul_fn=matmul_fn)
@@ -254,17 +279,18 @@ class DistributedCache:
             np.random.default_rng(seed * 1000 + i))
             for i in range(num_nodes)}
         self.ring = HashRing(list(self.nodes), vnodes=64)
+        self.fetch_lat = LatencyRecorder("l2.fetch")
         # stripe-request fan-out: wide enough to keep several chunks'
         # worth of per-node GETs in flight (stripes of one chunk go to
         # distinct nodes, so they never serialize on a node lock)
-        self.stripe_parallelism = 4 * n
+        self.stripe_parallelism = stripe_parallelism or 4 * n
         self._stripe_pool = LazyPool()
         # resilience knobs
         self.stripe_deadline_s = stripe_deadline_s
         self.hedge_quantile = hedge_quantile
         self._lat_window = QuantileWindow(maxlen=512, min_samples=32)
         # hot-key ("infected chunk") salting state
-        self.hot = HotKeyTracker(infection_threshold)
+        self.hot = HotKeyTracker(infection_threshold, window=hot_window)
         self.salt_count = max(1, int(salt_count))
         self._salts: dict[str, int] = {}       # name -> live salt copies
         self._salt_rr: dict[str, int] = {}     # name -> read round-robin
@@ -316,6 +342,7 @@ class DistributedCache:
                 nodes = self.ring.lookup(pk, count=self.coder.n)
                 for i, node in enumerate(nodes):
                     self.nodes[node].put(self._stripe_key(pk, i), stripes[i])
+                    self.ring.record_placement(node)
                 COUNTERS.inc("l2.salt_fanout_puts", self.coder.n)
             with self._salt_lock:
                 self._salts[name] = self.salt_count
@@ -414,6 +441,7 @@ class DistributedCache:
                 plat = self.nodes[node].put(self._stripe_key(pk, i),
                                             stripes[i])
                 lat = max(lat, min(plat, self.stripe_deadline_s))
+                self.ring.record_placement(node)
             if j:
                 COUNTERS.inc("l2.salt_fanout_puts", self.coder.n)
         return lat
@@ -487,6 +515,7 @@ class DistributedCache:
                         emitted.add(name)
                         data = self.coder.decode(stripes, chunk_len)
                         COUNTERS.inc("l2.hits")
+                        self.fetch_lat.record(lat_c)
                         out[name] = (lat_c, data)
                         self._maybe_salt(name, data)
                         on_ready(name, lat_c, data)
@@ -513,6 +542,7 @@ class DistributedCache:
             datas = self.coder.decode_many(stripes_list, lens)
             for (name, lat), data in zip(hits, datas):
                 COUNTERS.inc("l2.hits")
+                self.fetch_lat.record(lat)
                 out[name] = (lat, data)
                 self._maybe_salt(name, data)
         return out
@@ -531,8 +561,46 @@ class DistributedCache:
             for i, node in enumerate(nodes):
                 self.nodes[node].remove(self._stripe_key(pk, i))
 
+    def get_chunk_unreplicated(self, name: str, chunk_len: int):
+        """Fig. 9's comparison: a k-of-k read of the k data stripes, one
+        after another, with no parity to fall back on. Returns (latency
+        of the slowest of the k, bytes | None)."""
+        k = self.coder.k
+        nodes = self.ring.lookup(name, count=self.coder.n)
+        lats, stripes = [], {}
+        for i, node in enumerate(nodes[:k]):
+            lat, v = self._stripe_get(node, self._stripe_key(name, i),
+                                      window=False)
+            lats.append(lat)
+            if v is not None:
+                stripes[i] = v
+        if len(stripes) < k:
+            return (max(lats), None)
+        return (max(lats), self.coder.decode(stripes, chunk_len))
+
     # ------------------------------------------------------ fault control
     def set_fault(self, name: str, plan: FaultPlan):
         """Switch one node's fault plan mid-flight (in-flight stripe
         GETs keep the plan they read; the next wave sees the new one)."""
         self.nodes[name].set_fault(plan)
+
+    def fail_node(self, name: str, failed: bool = True):
+        """Crash (or, with ``failed=False``, heal) one node."""
+        self.nodes[name].set_fault(
+            FaultPlan.crashed() if failed else FaultPlan.healthy())
+
+    def flush(self):
+        """Empty every node's tiers and forget every salt copy."""
+        for node in self.nodes.values():
+            node.mem = LRUK(node.mem.capacity, k=2)
+            node.flash = LRUK(node.flash.capacity, k=2)
+        with self._salt_lock:
+            self._salts.clear()
+            self._salt_rr.clear()
+
+    @property
+    def hit_rate(self) -> float:
+        """``l2.hits`` over hits and misses, process-wide."""
+        h = COUNTERS.get("l2.hits")
+        m = COUNTERS.get("l2.misses")
+        return h / max(1.0, h + m)

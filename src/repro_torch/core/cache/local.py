@@ -31,3 +31,9 @@ class LocalCache:
 
     def __contains__(self, key):
         return key in self.lru
+
+    @property
+    def hit_rate(self) -> float:
+        h = COUNTERS.get(f"{self.name}.hits")
+        m = COUNTERS.get(f"{self.name}.misses")
+        return h / max(1.0, h + m)

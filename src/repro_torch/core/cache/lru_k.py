@@ -84,3 +84,6 @@ class LRUK:
             if key in self.data:
                 self.used -= len(self.data[key])
                 del self.data[key]
+
+    def keys(self):
+        return list(self.data)

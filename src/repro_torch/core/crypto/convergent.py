@@ -25,6 +25,10 @@ def derive_key(plaintext: bytes, salt: bytes) -> bytes:
     return hashlib.sha256(salt + plaintext).digest()
 
 
+def chunk_name(ciphertext: bytes) -> str:
+    return hashlib.sha256(ciphertext).hexdigest()
+
+
 @dataclass(frozen=True)
 class EncryptedChunk:
     name: str

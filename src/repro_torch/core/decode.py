@@ -82,7 +82,10 @@ class DecodeBackend:
     two-pass route. ``threads=1`` means the kernel owns its
     parallelism. ``tile_candidates``, ``tune_chunk_bytes`` and
     ``tune_budget_s`` shape its autotune sweep; ``tunes_on_cpu=False``
-    keeps the registered tile on the CPU (module doc)."""
+    keeps the registered tile on the CPU (module doc). The
+    ``encrypt_many``/``sha_many``/``fused`` properties are the hooks
+    bound to the card (``"cuda"``, the port's default device);
+    ``hooks("cpu")`` binds them to the plain versions."""
 
     name: str
     description: str
@@ -102,6 +105,18 @@ class DecodeBackend:
                 else (None, None, None)
         return self._hooks[key]
 
+    @property
+    def encrypt_many(self):
+        return self.hooks()[0]
+
+    @property
+    def sha_many(self):
+        return self.hooks()[1]
+
+    @property
+    def fused(self):
+        return self.hooks()[2]
+
 
 _REGISTRY: dict[str, DecodeBackend] = {}
 _ALIASES: dict[str, str] = {}
@@ -111,6 +126,11 @@ def register_backend(backend: DecodeBackend, aliases: tuple = ()) -> None:
     _REGISTRY[backend.name] = backend
     for a in aliases:
         _ALIASES[a] = backend.name
+
+
+def registered_backends() -> dict:
+    """{canonical name: DecodeBackend}, registration order."""
+    return dict(_REGISTRY)
 
 
 def known_backend_names() -> list:
@@ -131,6 +151,11 @@ def resolve_backend_name(name: str) -> str:
         raise ValueError(f"unknown decode backend {name!r}; known: "
                          f"{known_backend_names()}")
     return name
+
+
+def get_backend(name: str) -> DecodeBackend:
+    """The registered backend object behind `name` (not ``"serial"``)."""
+    return _REGISTRY[resolve_backend_name(name)]
 
 
 def _bind(fn, device):

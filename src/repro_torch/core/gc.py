@@ -67,6 +67,10 @@ class RootPinRegistry:
         with self._lock:
             return self._counts.get(root, 0) > 0
 
+    def count(self, root: str) -> int:
+        with self._lock:
+            return self._counts.get(root, 0)
+
 
 class RefcountIndex:
     """Per-root chunk refcounts: {root: {image_id: names}} plus a name →

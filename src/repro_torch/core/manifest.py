@@ -36,6 +36,10 @@ class Manifest:
     layout_table: list           # ImageLayout.to_table()
     chunks: list = field(default_factory=list)   # list[ChunkRef]
 
+    @property
+    def unique_names(self) -> list:
+        return sorted({c.name for c in self.chunks if c.name != ZERO_CHUNK})
+
     def public_body(self) -> dict:
         return {
             "image_id": self.image_id,

@@ -78,9 +78,13 @@ class CreateStats:
         return self.unique_chunks / max(1, nz)
 
 
-def image_id_for(tree) -> str:
-    """SHA-256 over the canonical (name, bytes) sequence, first 32 hex
-    digits — the JAX package's image id for the same tree."""
+def image_id_for(tree_or_bytes) -> str:
+    """SHA-256 over the canonical (name, bytes) sequence of a tree, or
+    of raw ``bytes``, first 32 hex digits — the JAX package's image id
+    for the same input."""
+    if isinstance(tree_or_bytes, bytes):
+        return hashlib.sha256(tree_or_bytes).hexdigest()[:32]
+    tree = tree_or_bytes
     h = hashlib.sha256()
     for name, leaf in canonical_paths(tree):
         h.update(name.encode())
@@ -398,11 +402,13 @@ class PublishPipeline:
             counters=self.counters)
 
     # ---------------------------------------------------------- migration
-    def copy_chunks(self, from_root: str, to_root: str, names) -> int:
+    def copy_chunks(self, from_root: str, to_root: str, names,
+                    parallelism: int | None = None) -> int:
         """Copy `names` from `from_root` into `to_root` (the GC's batched
         migration): one presence probe on the destination, then
-        bounded-parallel single-flighted GET+PUT copies. Returns the
-        number of chunks copied."""
+        single-flighted GET+PUT copies, `parallelism` at a time (None:
+        the pipeline's ``upload_parallelism``). Returns the number of
+        chunks copied."""
         want = [n for n in dict.fromkeys(names) if n != ZERO_CHUNK]
         if not want:
             return 0
@@ -428,8 +434,8 @@ class PublishPipeline:
                 if leader:
                     self.flights.finish(to_root, name, flight, err)
 
-        copied = sum(self._pool.get(self.upload_parallelism)
-                     .map(copy_one, missing))
+        par = parallelism or self.upload_parallelism
+        copied = sum(self._pool.get(par).map(copy_one, missing))
         self.counters.add("publish.migrated_chunk_copies", copied)
         return copied
 

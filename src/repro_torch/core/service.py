@@ -214,8 +214,8 @@ class ImageService:
     """Process-wide agent: construct once, ``open()`` per image."""
 
     def __init__(self, store, config: ServiceConfig | None = None, *,
-                 l1=None, l2=None, peer=None, fetch_limiter=None, pins=None,
-                 refcounts=None):
+                 l1=None, l2=None, peer=None, fetch_limiter=None,
+                 admission=None, counters=None, pins=None, refcounts=None):
         cfg = config if config is not None else ServiceConfig()
         self.config = cfg
         self.device = resolve_device(cfg.device)
@@ -235,9 +235,14 @@ class ImageService:
         else:
             self.fetch_limiter = BlockingLimiter(cfg.fetch_concurrency) \
                 if cfg.fetch_concurrency > 0 else None
-        self.admission = RejectingLimiter(cfg.max_coldstarts) \
-            if cfg.max_coldstarts > 0 else None
-        self.counters = COUNTERS
+        if admission is not None:
+            self.admission = admission
+        else:
+            self.admission = RejectingLimiter(cfg.max_coldstarts) \
+                if cfg.max_coldstarts > 0 else None
+        # a Counters-compatible sink (``COUNTERS`` by default): the
+        # breaker and the tenant scopes count through it
+        self.counters = counters if counters is not None else COUNTERS
         # one retry policy and one breaker per service, shared by every
         # reader and the publisher: the breaker's error rate must span
         # all of this process's origin traffic

@@ -20,6 +20,10 @@ from pathlib import Path
 from repro_torch.core.telemetry import COUNTERS
 
 
+class ExpiredRootRead(Exception):
+    pass
+
+
 class ChunkStore:
     def __init__(self, root_dir, fsync: bool = False):
         self.dir = Path(root_dir)

@@ -183,6 +183,10 @@ class QuantileWindow:
         with self._lock:
             self._dq.append(value)
 
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._dq)
+
     def quantile(self, q: float) -> float:
         with self._lock:
             if len(self._dq) < self.min_samples:

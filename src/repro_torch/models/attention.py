@@ -174,7 +174,16 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
                     lengths: torch.Tensor) -> None:
     """Write one new (k, v) per sequence at its current length, IN
     PLACE (the JAX package returns new caches; updating in place keeps
-    one cache in device memory). k_new/v_new: (B, Hkv, hd)."""
-    b_idx = torch.arange(k_cache.shape[0], device=k_cache.device)
-    k_cache[b_idx, lengths] = k_new.to(k_cache.dtype)
-    v_cache[b_idx, lengths] = v_new.to(v_cache.dtype)
+    one cache in device memory). k_new/v_new: (B, Hkv, hd).
+
+    A sequence whose length has reached the cache's Smax rows writes
+    nothing, as the JAX scatter drops an out-of-range index: its row
+    index is clamped into range and the row already there is written
+    back. No host sync, no branch on the data."""
+    B, Smax = k_cache.shape[:2]
+    b_idx = torch.arange(B, device=k_cache.device)
+    idx = lengths.clamp(max=Smax - 1)
+    keep = (lengths < Smax)[:, None, None]
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cache[b_idx, idx] = torch.where(keep, new.to(cache.dtype),
+                                        cache[b_idx, idx])

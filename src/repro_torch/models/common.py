@@ -1,7 +1,10 @@
 """Shared model pieces (the port of ``repro.models.common``): norms,
-RoPE, sinusoidal positions, embeddings. Functions on tensors, same layouts and the same
-float32 islands as the JAX package."""
+RoPE, sinusoidal positions, embeddings, parameter counts. Functions on
+tensors, same layouts and the same float32 islands as the JAX
+package."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -39,6 +42,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x2 = x[..., 1::2].float()
     out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
+
+
+def sinusoidal_pos_emb(length: int, dim: int) -> torch.Tensor:
+    """The (length, dim) float32 table of positions 0..length-1: sines
+    of the first dim/2 frequencies, then their cosines, computed in
+    float64 on the host as the JAX package's table is."""
+    pos = torch.arange(length, dtype=torch.float64)[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float64)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0, dtype=torch.float64),
+                            2 * i / dim)
+    return torch.cat([torch.sin(angle), torch.cos(angle)],
+                     dim=-1).float()
 
 
 def sin_pos(positions: torch.Tensor, dim: int) -> torch.Tensor:
@@ -115,3 +130,13 @@ def chunked_softmax_xent(x: torch.Tensor, embed_t: torch.Tensor,
                                    labels[:, sl], vocab,
                                    use_reentrant=False)
     return total / (B * S)
+
+
+def count_params(params) -> int:
+    """Elements in every leaf of a nested (or flat) tree of tensors or
+    arrays."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return math.prod(params.shape)

@@ -86,6 +86,11 @@ class EncDecModel(nn.Module):
         self.params: dict | None = None
         self._dec: list = []         # per decoder layer: its params
 
+    def param_shapes(self) -> dict:
+        """The nested {name: LeafSpec} (shape, float32) of this config's
+        parameters."""
+        return self.specs
+
     def load_flat(self, flat: dict) -> "EncDecModel":
         """Load {path: numpy array or tensor}: exactly this config's
         names and shapes (``models.lm.load_tree``)."""

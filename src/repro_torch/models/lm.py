@@ -442,6 +442,11 @@ class DecoderLM(nn.Module):
         self.params: dict | None = None
         self._groups: list = []      # per group: [per-layer params]
 
+    def param_shapes(self) -> dict:
+        """The nested {name: LeafSpec} (shape, float32) of this config's
+        parameters, the tree ``tree_from_flat`` rebuilds."""
+        return self.specs
+
     def load_flat(self, flat: dict) -> "DecoderLM":
         """Load {path: numpy array or tensor}: exactly this config's
         names and shapes (``load_tree``). Tensors already on the device

@@ -36,7 +36,9 @@ def cold_start(model, manifest_blob: bytes, tenant_key: bytes,
                max_len: int = 128) -> tuple:
     """Returns (engine, stats): ``load_seconds`` (open + restore + load
     into the model), the restore's fetch/decode split, overlap and L2
-    hits, and ``restore_seconds`` (open + restore only)."""
+    hits, its simulated serial and pipelined seconds, the reader's
+    median simulated chunk latency, and ``restore_seconds`` (open +
+    restore only)."""
     with service.admission_slot():
         t0 = time.perf_counter()
         handle = service.open(manifest_blob, tenant_key, root=root,
@@ -60,6 +62,9 @@ def cold_start(model, manifest_blob: bytes, tenant_key: bytes,
             "origin_fetches": handle.counters.get("read.origin_fetches")
             - before_origin,
             "image_bytes": handle.layout.image_size,
+            "l2_sim_latency_p50": handle.reader.read_lat.percentile(50),
+            "sim_pipelined_s": lb.get("sim_pipelined_s"),
+            "sim_serial_s": lb.get("sim_serial_s"),
             "fetch_wall_s": lb.get("fetch_wall_s"),
             "decode_wall_s": lb.get("decode_wall_s"),
             "decode_backend": lb.get("decode_backend"),

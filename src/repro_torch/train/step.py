@@ -8,7 +8,9 @@ the optimizer state of ``train.optimizer``; the model is any
 ``build_model`` result (``DecoderLM`` or ``EncDecModel``), whose layout
 ``param_specs`` gives by family. A step computes the loss
 and every gradient (``torch.autograd.grad`` of ``model.loss``) and
-applies AdamW, returning a new state, as the JAX step does."""
+applies AdamW, returning a new state, as the JAX step does. The serving
+steps wrap ``prefill`` and ``decode_step``, loading the weights they are
+given into the model first unless it holds them already."""
 from __future__ import annotations
 
 import torch
@@ -66,6 +68,32 @@ def make_train_step(model, opt_cfg: OptConfig):
         metrics = {"loss": loss.detach(), "grad_norm": gn}
         return {"params": new_params, "opt": new_opt}, metrics
     return train_step
+
+
+def _serve(model, params):
+    """Load `params` (a nested or flat tree) into `model` unless it
+    serves them already: the port's model holds the weights it runs."""
+    if params is not None and params is not model.params:
+        model.load_flat(dict(canonical_paths(params)))
+
+
+def make_prefill_step(model):
+    """``prefill_step(params, batch, state) -> (logits, state)``: the
+    model's ``prefill`` over `params` (the reference's signature)."""
+    def prefill_step(params, batch, state):
+        _serve(model, params)
+        return model.prefill(batch, state)
+    return prefill_step
+
+
+def make_decode_step(model):
+    """``decode_step(params, state, tokens, pos) -> (logits, state)``:
+    the model's ``decode_step`` over `params` (the reference's
+    signature)."""
+    def decode_step(params, state, tokens, pos):
+        _serve(model, params)
+        return model.decode_step(state, tokens, pos)
+    return decode_step
 
 
 def cast_params(params, dtype=torch.bfloat16):
