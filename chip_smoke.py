@@ -231,8 +231,32 @@ Phases (any failure exits non-zero):
    "whisper-base", "--publish"])``, which must serve every request.
    Every time printed in phase 10 carries the card's name and power
    limit.
+11. sharding on ``torch.distributed``. (a) A world-1 NCCL process group
+   and a (1, 1) ``DeviceMesh``: under ``use_policy(mesh,
+   ShardingPolicy())`` SmolLM-360M at full width trains 3 steps at phase
+   9's 8 x 512 tokens (baseline variant, ``--seed``) with its params and
+   Adam state as DTensors placed by ``param_specs()`` and
+   ``opt_state_specs``; the losses must equal phase 9's first three
+   within ``TRAIN_LOSS_TOL`` relative, and the step ms is printed beside
+   phase 9's. (b) The roofline of its first step counted on the card
+   (``launch.roofline.count_step``) must equal a fake-tensor trace of
+   the same cell (``launch.dryrun.build_step``) exactly: FLOPs, unfused
+   bytes and collective bytes (0); ``model_flops`` must be
+   7.732474675200e12. ``step_time_s``, the measured step, model_flops /
+   (measured x H100 peak) and ``max_memory_allocated`` beside the
+   trace's ``per_device_total`` are printed. (c) Started before phase
+   10 in their own low-priority processes: ``python -m
+   repro_torch.launch.sweep --arch smollm-360m --single-pod-only`` (3
+   cells) and ``python -m repro_torch.launch.dryrun --arch
+   kimi-k2-1t-a32b --shape train_4k`` with ``baseline`` and
+   ``moe_a2a``, all on the fake 16 x 16 process group; every record
+   must exist with 256 chips and the closed-form ``model_flops``, and
+   ``moe_a2a``'s must exchange all-to-all bytes (its collective bytes
+   printed beside baseline's, kind by kind). Each record's terms are
+   printed as a roofline projection at H100 SXM5 data-sheet peaks, never
+   as a card time.
 
-The last lines are the launch counts of phases 3 to 10, the kernel
+The last lines are the launch counts of phases 3 to 11, the kernel
 table (``{"kernels": [...]}``, each kernel's launches counted on the path
 that runs it, and on every path in ``launches_by_phase``), the
 ``nvidia-smi`` name/power-limit line and
@@ -468,6 +492,26 @@ RESILIENCE_COUNTERS = ("retry.attempts", "retry.retries", "retry.backoff_s",
                        "breaker.half_opens", "breaker.probes",
                        "breaker.closed", "breaker.shed",
                        "faults.origin_transient")
+
+
+# phase 11: sharding on torch.distributed. (a) SmolLM-360M at full width
+# trains SHARD_STEPS steps of phase 9's TRAIN_BATCH x TRAIN_SEQ tokens
+# (the baseline variant, same seed) with its state as DTensors on a
+# world-1 NCCL (1, 1) mesh; its losses must equal phase 9's first steps
+# within TRAIN_LOSS_TOL relative. (b) The roofline of its first step
+# counted on the card must equal a fake-tensor trace of the same cell
+# exactly, and model_flops must be SMOLLM_TRAIN_FLOPS (6 x 314,635,200
+# active parameters x 4096 tokens). (c) Dry runs on the fake 16 x 16
+# process group, each in its own process, started before phase 10 at
+# low priority (they need the CPU only): the SmolLM sweep's three cells
+# and kimi-k2 x train_4k under each of KIMI_VARIANTS, every record of
+# DRYRUN_CHIPS ranks; moe_a2a must exchange all-to-all bytes.
+SHARD_STEPS = 3
+SMOLLM_TRAIN_FLOPS = 7.732474675200e12
+KIMI_VARIANTS = ("baseline", "moe_a2a")
+DRYRUN_CHIPS = 256
+DRYRUN_TIMEOUT_S = 420
+DRYRUN_NICE = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -2342,8 +2386,8 @@ def check_moe_layers(model, toks) -> list:
     calls = []
     real = blocks.moe_apply
 
-    def rec(p, x, cfg, dtype):
-        y = real(p, x, cfg, dtype)
+    def rec(p, x, cfg, dtype, impl="sort"):
+        y = real(p, x, cfg, dtype, impl=impl)
         calls.append((p, x, y))
         return y
 
@@ -3392,6 +3436,237 @@ def phase_families_4b(seed: int, kernels, work: Path, card: str) -> dict:
     return out
 
 
+def start_dryruns(work: Path) -> list:
+    """Phase 11c's dry runs in the background, each writing its record
+    under `work` and its output to a log there: (command, process, log
+    file)."""
+    import os
+    work.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_DRYRUN_DIR=str(work))
+    cmds = [[sys.executable, "-m", "repro_torch.launch.sweep", "--arch",
+             "smollm-360m", "--single-pod-only", "--jobs", "3"]]
+    cmds += [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+              "kimi-k2-1t-a32b", "--shape", "train_4k", "--variant", v]
+             for v in KIMI_VARIANTS]
+    out = []
+    for i, cmd in enumerate(cmds):
+        f = open(work / f"dryrun-{i}.log", "w")
+        out.append((cmd, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(DRYRUN_NICE)), f))
+    return out
+
+
+def stop_dryruns(procs: list) -> None:
+    for _, p, f in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        f.close()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def closed_form_flops(cfg, shape, counts: dict) -> float:
+    """6 N_active B S for training, 2 N B S for a prefill, 2 N B for a
+    decode step (N: the active parameters without the embeddings)."""
+    B, S = shape.global_batch, shape.seq_len
+    factor = {"train": 6.0 * B * S, "prefill": 2.0 * B * S,
+              "decode": 2.0 * B}[shape.kind]
+    return factor * counts["active"]
+
+
+def phase_sharding(seed: int, train: dict, dryruns: list, work: Path,
+                   card: str) -> dict:
+    """11: the sharded path on the card (a, b) and the dry runs (c)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import global_batch
+    from repro_torch.launch.dryrun import (
+        build_step,
+        place_batch,
+        place_train_state,
+        trace,
+        under_policy,
+    )
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.modelflops import model_flops, param_counts
+    from repro_torch.launch.roofline import (
+        HBM_BW,
+        PEAK_FLOPS,
+        count_step,
+        roofline_from_costs,
+    )
+    from repro_torch.launch.variants import get_variant
+    from repro_torch.models import build_model
+    from repro_torch.sharding.constrain import FORCED
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    out = {}
+    cfg = get_config("smollm-360m")
+    policy, flags, opt = get_variant("baseline", cfg, SHAPES["train_4k"])
+    opt_cfg = OptConfig(**opt)
+    shape = ShapeConfig("train_8x512", TRAIN_SEQ, TRAIN_BATCH, "train")
+    model = build_model(cfg, flags, device="cuda")
+    mf = model_flops(cfg, shape, model.param_shapes())
+    check(mf == SMOLLM_TRAIN_FLOPS, f"model_flops {mf!r} is not "
+          f"{SMOLLM_TRAIN_FLOPS!r}")
+    out["model_flops"] = mf
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1, device_type="cuda")
+        sharded = under_policy(make_train_step(model, opt_cfg), mesh, policy)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = place_train_state(model, init_train_state(model, seed,
+                                                          opt_cfg),
+                                  mesh, policy, opt_cfg)
+        FORCED.clear()
+        losses, step_ms = [], []
+        for s in range(SHARD_STEPS):
+            batch = place_batch(model, {
+                k: torch.from_numpy(np.asarray(v)).cuda()
+                for k, v in global_batch(cfg, s, TRAIN_BATCH, TRAIN_SEQ,
+                                         seed=seed).items()},
+                shape, mesh, policy)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if s == 0:
+                (state, metrics), costs = count_step(sharded, state, batch)
+            else:
+                state, metrics = sharded(state, batch)
+            losses.append(float(metrics["loss"].full_tensor()))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        out["losses"] = losses
+        out["step_ms_all"] = step_ms
+        out["step_ms"] = float(np.median(step_ms[1:]))
+        ref = train["losses_a"][:SHARD_STEPS]
+        out["loss_max_rel_diff"] = max(abs(x - y) / abs(y)
+                                       for x, y in zip(losses, ref))
+        check(out["loss_max_rel_diff"] <= TRAIN_LOSS_TOL, f"sharded losses "
+              f"{losses} differ from phase 9's {ref}")
+        out["forced_replications"] = dict(FORCED)
+        log(f"sharding {card}: SmolLM-360M [baseline] on a world-1 NCCL "
+            f"(1, 1) mesh, DTensor state, B={TRAIN_BATCH} S={TRAIN_SEQ}: "
+            f"losses {losses} (phase 9: {ref}, max rel diff "
+            f"{out['loss_max_rel_diff']:.3g}); step "
+            f"{out['step_ms']:.2f} ms (median of steps 2-{SHARD_STEPS}; "
+            f"phase 9 unsharded {train['step_ms']:.2f} ms); forced "
+            f"replications {out['forced_replications']}")
+        del state, metrics, batch
+
+        roof = roofline_from_costs(costs, 1, mf)
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            fstep, args = build_step(model, shape, mesh, policy, opt_cfg,
+                                     "cuda")
+            fake, memory = trace(fstep, args)
+        got = (costs.dot_flops, costs.bytes_accessed, costs.collective_bytes)
+        want = (fake.dot_flops, fake.bytes_accessed, fake.collective_bytes)
+        check(got == want, f"the roofline counted on the card {got} is not "
+              f"the fake-tensor trace's {want}")
+        check(costs.collective_bytes == 0, "a world-1 step moved "
+              "collective bytes")
+        measured_s = out["step_ms"] / 1e3
+        out["roofline"] = roof.to_dict()
+        out["measured_mfu"] = mf / (measured_s * PEAK_FLOPS)
+        out["estimate"] = memory
+        log(f"sharding {card}: roofline of step 1 counted on the card = "
+            f"its fake-tensor trace: {costs.dot_flops:.6e} FLOPs, "
+            f"{costs.bytes_accessed:.6e} unfused bytes, "
+            f"{costs.collective_bytes} collective bytes, {costs.ops} ops; "
+            f"model_flops {mf:.12e}; projection at H100 SXM5 datasheet "
+            f"peaks ({PEAK_FLOPS:.4g} FLOP/s, {HBM_BW:.4g} B/s): "
+            f"step_time_s {roof.step_time_s:.6f} ({roof.dominant}-bound; "
+            f"compute {roof.compute_s * 1e3:.3f} ms, memory "
+            f"{roof.memory_s * 1e3:.3f} ms); measured step "
+            f"{out['step_ms']:.2f} ms, model_flops / (measured x peak) = "
+            f"{100 * out['measured_mfu']:.3f}%; max_memory_allocated "
+            f"{out['peak_device_bytes'] / 2**30:.3f} GiB beside the "
+            f"trace's per_device_total {memory['per_device_total'] / 2**30:.3f}"
+            f" GiB")
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    for cmd, p, f in dryruns:
+        try:
+            rc = p.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S -
+                                    (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            rc = None
+        f.flush()
+        check(rc == 0, f"{' '.join(cmd[2:])} ended with {rc}: "
+              f"{(work / Path(f.name).name).read_text()[-2000:]}")
+    out["dryrun_wait_s"] = time.perf_counter() - t0
+    records = {}
+    for path in sorted(work.glob("*_16x16_*.json")):
+        rec = json.loads(path.read_text())
+        records[path.stem] = rec
+    want = [f"smollm-360m_{s}_16x16_baseline"
+            for s in ("train_4k", "prefill_32k", "decode_32k")]
+    want += [f"kimi-k2-1t-a32b_train_4k_16x16_{v}" for v in KIMI_VARIANTS]
+    check(sorted(records) == sorted(want), f"dry-run records "
+          f"{sorted(records)}, want {sorted(want)}")
+    out["dryruns"] = {}
+    for name in want:
+        rec = records[name]
+        r = rec["roofline"]
+        cfg_r = get_config(rec["arch"])
+        shape_r = SHAPES[rec["shape"]]
+        m = build_model(cfg_r, flags, device="cuda")
+        closed = closed_form_flops(cfg_r, shape_r,
+                                   param_counts(cfg_r, m.param_shapes()))
+        check(rec["chips"] == DRYRUN_CHIPS and r["chips"] == DRYRUN_CHIPS,
+              f"{name}: {rec['chips']} chips")
+        check(r["model_flops"] == closed, f"{name}: model_flops "
+              f"{r['model_flops']!r}, closed form {closed!r}")
+        out["dryruns"][name] = {k: rec[k] for k in (
+            "memory", "forced_replications", "lower_s", "hlo_bytes",
+            "device")} | {"roofline": r}
+        log(f"dryrun {name}: roofline projection at H100 SXM5 datasheet "
+            f"peaks, {DRYRUN_CHIPS} ranks (fake process group; not a card "
+            f"time): compute {r['compute_s'] * 1e3:.3f} ms, memory "
+            f"{r['memory_s'] * 1e3:.3f} ms, collective "
+            f"{r['collective_s'] * 1e3:.3f} ms -> {r['dominant']}-bound, "
+            f"step_time_s {r['step_time_s']:.6f}, mfu {r['mfu']:.6f}, "
+            f"useful {r['useful_fraction']:.6f}; flops/rank {r['flops']:.6e},"
+            f" unfused bytes/rank {r['bytes']:.6e}, collective bytes/rank "
+            f"{r['collective_bytes']:.6e}; memory/rank "
+            f"{rec['memory']['per_device_total'] / 2**30:.3f} GiB; forced "
+            f"replications {rec['forced_replications']}; traced in "
+            f"{rec['lower_s']} s")
+    base = records[f"kimi-k2-1t-a32b_train_4k_16x16_{KIMI_VARIANTS[0]}"]
+    a2a = records[f"kimi-k2-1t-a32b_train_4k_16x16_{KIMI_VARIANTS[1]}"]
+    a2a_bytes = a2a["roofline"]["collective_detail"].get("all-to-all", 0.0)
+    check(a2a_bytes > 0, "moe_a2a's record has no all-to-all bytes")
+    kinds = sorted(set(base["roofline"]["collective_detail"])
+                   | set(a2a["roofline"]["collective_detail"]))
+    out["kimi_collectives"] = {
+        k: [base["roofline"]["collective_detail"].get(k, 0.0),
+            a2a["roofline"]["collective_detail"].get(k, 0.0)]
+        for k in kinds}
+    log("dryrun kimi-k2-1t-a32b x train_4k collective bytes/rank by kind, "
+        "baseline vs moe_a2a (projection, not a card time): "
+        + "; ".join(f"{k} {v[0]:.6e} vs {v[1]:.6e}"
+                    for k, v in out["kimi_collectives"].items()))
+    return out
+
+
 def rng_prompt(seed: int, vocab: int) -> list:
     import numpy as np
     return [int(t) for t in
@@ -3427,8 +3702,10 @@ def main() -> int:
     work8 = ROOT / "build" / f"smoke-ep-{args.seed}"
     work9 = ROOT / "build" / f"smoke-train-{args.seed}"
     work10 = ROOT / "build" / f"smoke-families-{args.seed}"
-    for d in (tmp, work, work7, work8, work9, work10):
+    work11 = ROOT / "build" / f"smoke-dryrun-{args.seed}"
+    for d in (tmp, work, work7, work8, work9, work10, work11):
         shutil.rmtree(d, ignore_errors=True)
+    dryruns = []
     try:
         smi_line = phase_toolchain(kernels)
         rng = np.random.default_rng(args.seed)
@@ -3457,11 +3734,16 @@ def main() -> int:
         train = phase_train_resume(args.seed, kernels, work9)
         shutil.rmtree(work9, ignore_errors=True)
         card = f"[{smi_line.strip()}]"   # every phase-10 time carries it
+        dryruns = start_dryruns(work11)
         fam4b = phase_families_4b(args.seed, kernels, work10, card)
+        kernels.reset_launches()
+        sharding = phase_sharding(args.seed, train, dryruns, work11, card)
+        sharding["launches"] = dict(kernels.LAUNCHES)
         launches = {3: main_path["launches"], 4: l2_path["launches"],
                     5: storm["launches"], 6: gc_roll["launches"],
                     7: launcher["launches"], 8: ep["launches"],
-                    9: train["launches"], 10: fam4b["launches"]}
+                    9: train["launches"], 10: fam4b["launches"],
+                    11: sharding["launches"]}
         for phase, names in PATH_KERNELS.items():
             for name in names:
                 check(launches[phase][name] > 0, f"kernel {name} was not "
@@ -3470,7 +3752,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        for d in (tmp, work, work7, work8, work9, work10):
+        stop_dryruns(dryruns)
+        for d in (tmp, work, work7, work8, work9, work10, work11):
             shutil.rmtree(d, ignore_errors=True)
     table = []
     for name, (src, replaces, phase) in TPU_KERNELS.items():
@@ -3506,6 +3789,8 @@ def main() -> int:
     summary["train"] = {k: v for k, v in train.items() if k != "launches"}
     summary["families_4b"] = {k: v for k, v in fam4b.items()
                               if k != "launches"}
+    summary["sharding"] = {k: v for k, v in sharding.items()
+                           if k != "launches"}
     summary["smoke_seconds"] = time.perf_counter() - t_all
     log("main path:", json.dumps(summary))
     log(json.dumps({"launches": {f"phase{p}": n

@@ -19,8 +19,8 @@ JAX launcher's manager uses the serial ``create_image``, whose
 manifests and chunks are byte-identical): on the card its SHA-256 and
 AES kernels, and ``--resume`` restores through the fused kernel; with
 ``--device cpu`` the service runs the host backend (``python``: numpy
-AES and hashlib, the crypto ``create_image`` uses). A variant's sharding-policy overrides
-have no effect on one device (``launch.variants``). ``main(argv)``
+AES and hashlib, the crypto ``create_image`` uses). A variant's sharding policy has no
+effect on one device without a mesh (``launch.variants``). ``main(argv)``
 prints the JAX launcher's lines and returns the trainer's history.
 """
 from __future__ import annotations

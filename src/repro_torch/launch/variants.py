@@ -1,26 +1,17 @@
-"""Named (sharding-policy overrides, RunFlags, OptConfig-overrides)
-bundles (the port of ``repro.launch.variants``: the same names and
-contents).
+"""Named (ShardingPolicy, RunFlags, OptConfig-overrides) bundles (the
+port of ``repro.launch.variants``: the same names and contents).
 
 ``baseline`` is the paper-faithful starting point; the others are the
-JAX package's §Perf hillclimb variants. On the port:
-
-* the flags apply (``RunFlags``): ``remat``, ``chunked_loss``,
-  ``skip_masked_blocks`` and ``flash_vjp`` compute the same function and
-  change what training keeps and recomputes; ``moe_impl="shard_map"``
-  needs an expert-parallel mesh and raises ``NotImplementedError``
-  (ROADMAP.md queue 1, item 6), so the variants that set it cannot be
-  built yet;
-* the optimizer overrides apply (``OptConfig``: the 8-bit and bfloat16
-  moments);
-* a variant's ``policy`` overrides (the JAX ``ShardingPolicy`` rules)
-  come back as a plain dict and have no effect on one device until
-  ``sharding/`` is ported (item 6).
+JAX package's §Perf hillclimb variants. The policy applies under
+``sharding.constrain.use_policy`` on a mesh (``launch.dryrun``, a
+multi-rank run); on one device without a mesh only the flags and the
+optimizer overrides change anything.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.lm import RunFlags
+from repro_torch.sharding.rules import ShardingPolicy
 
 VARIANTS: dict[str, dict] = {
     # Megatron-TP on `model` + ZeRO-1/3-style FSDP on `data`, pure DP on
@@ -124,11 +115,13 @@ VARIANTS: dict[str, dict] = {
 
 
 def get_variant(name: str, cfg: ModelConfig, shape: ShapeConfig):
-    """(policy overrides dict, RunFlags, OptConfig overrides) of a
-    variant; `cfg` and `shape` are accepted as in the JAX package (its
-    policy does not read them either)."""
+    """(ShardingPolicy, RunFlags, OptConfig overrides) of a variant;
+    `cfg` and `shape` are accepted as in the JAX package (its policy
+    does not read them either)."""
     spec = VARIANTS[name]
-    policy = dict(spec.get("policy", {}))
+    policy = ShardingPolicy(name=name)
+    if "policy" in spec:
+        policy = policy.with_rules(name, **spec["policy"])
     flags = RunFlags(**spec.get("flags", {}))
     opt = spec.get("opt", {})
     return policy, flags, opt

@@ -26,6 +26,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.constrain import (
+    as_dtensor,
+    is_dtensor,
+    local_shard_map,
+)
+
 NEG_INF = -1e30
 
 
@@ -116,7 +122,14 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``scaled_dot_product_attention`` (``is_causal`` when the mask is
     plain causal, else an explicit causal+window mask; the blocks and
     `skip_masked_blocks` do not apply: its kernels skip masked blocks
-    themselves); on the CPU ``flash_attn_plain``."""
+    themselves); on the CPU ``flash_attn_plain``. DTensors run shard by
+    shard (``sharded_heads``)."""
+    if is_dtensor(q):
+        return sharded_heads(
+            lambda ql, kl, vl: flash_attn(
+                ql, kl, vl, causal=causal, q_offset=q_offset, window=window,
+                q_block=q_block, kv_block=kv_block,
+                skip_masked_blocks=skip_masked_blocks), q, k, v, 2)
     if q.device.type == "cpu":
         return flash_attn_plain(q, k, v, causal=causal, q_offset=q_offset,
                                 window=window, q_block=q_block,
@@ -124,6 +137,62 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                 skip_masked_blocks=skip_masked_blocks)
     return flash_attn_sdpa(q, k, v, causal=causal, q_offset=q_offset,
                            window=window)
+
+
+def sharded_heads(fn, q, k, v, head_dim: int, rows=()):
+    """``fn(q, k, v, *rows)`` of GQA attention on DTensors, run on each
+    rank's local shards (`rows`: per-sequence (B,) DTensors, laid out as
+    the batch). A mesh dim that shards the batch of q or of k (a
+    decode cache) shards both; one that shards q's heads keeps them
+    sharded, and k and v's KV heads with them where they split as q's
+    do, else k and v are whole on every rank and each rank picks the KV
+    head of each of its query heads (head dim `head_dim` of q, 2 of k
+    and v). Every other mesh dim is replicated (a partial sum is
+    reduced first). The result has q's layout."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    Hq, Hkv = q.shape[head_dim], k.shape[2]
+    sizes = tuple(mesh.shape)
+
+    def shards(t, d):
+        return [isinstance(p, Shard) and p.dim == d for p in t.placements]
+    q_batch, k_batch = shards(q, 0), shards(k, 0)
+    q_heads = shards(q, head_dim)
+    head_mesh = [i for i in range(mesh.ndim)
+                 if q_heads[i] and not (q_batch[i] or k_batch[i])]
+    n = 1
+    for i in head_mesh:
+        n *= sizes[i]
+    split = n > 1 and Hkv % n == 0
+    q_pl, kv_pl, row_pl = [], [], []
+    for i in range(mesh.ndim):
+        if q_batch[i] or k_batch[i]:
+            q_pl.append(Shard(0))
+            kv_pl.append(Shard(0))
+            row_pl.append(Shard(0))
+        elif i in head_mesh:
+            q_pl.append(Shard(head_dim))
+            kv_pl.append(Shard(2) if split else Replicate())
+            row_pl.append(Replicate())
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+            row_pl.append(Replicate())
+
+    def local(ql, kl, vl, *rl):
+        if n > 1 and not split:
+            r = 0
+            for i in head_mesh:
+                r = r * sizes[i] + mesh.get_local_rank(i)
+            hl = ql.shape[head_dim]
+            idx = (r * hl + torch.arange(hl, device=ql.device)) // (Hq // Hkv)
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        return fn(ql, kl, vl, *rl)
+
+    return local_shard_map(local, mesh,
+                           in_specs=(q_pl, kv_pl, kv_pl) + (row_pl,) * len(rows),
+                           out_spec=q_pl)(q, k, v, *rows)
 
 
 def flash_attn_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -152,7 +221,15 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     """One-token attention. q: (B, Hq, hd); caches (B, Smax, Hkv, hd);
     lengths (B,) valid lengths (the new token, already in the cache,
     sits at lengths-1). Scores, softmax and the weighted sum in
-    float32; the result is cast to q.dtype."""
+    float32; the result is cast to q.dtype. DTensors run shard by shard
+    (``sharded_heads``; a cache sharded on its sequence dim is gathered
+    first)."""
+    if is_dtensor(q):
+        lengths = as_dtensor(lengths, q.device_mesh)
+        return sharded_heads(
+            lambda ql, kl, vl, ll: decode_attn(ql, kl, vl, ll,
+                                               window=window),
+            q, k_cache, v_cache, 1, rows=(lengths,))
     B, Smax, Hkv, hd = k_cache.shape
     Hq = q.shape[1]
     G = Hq // Hkv
@@ -179,11 +256,43 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     A sequence whose length has reached the cache's Smax rows writes
     nothing, as the JAX scatter drops an out-of-range index: its row
     index is clamped into range and the row already there is written
-    back. No host sync, no branch on the data."""
-    B, Smax = k_cache.shape[:2]
+    back. No host sync, no branch on the data.
+
+    DTensor caches (a sharded decode state) are updated shard by shard:
+    the new rows and lengths are laid out as the cache's batch and head
+    dims, and a rank whose shard holds a slice of the sequence dim
+    (``kv_seq`` sharding) writes only the rows that fall in it."""
+    if not is_dtensor(k_cache):
+        _write_rows(k_cache, v_cache, k_new, v_new, lengths, 0)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, pl = k_cache.device_mesh, k_cache.placements
+
+    def local(t, cache_dims):
+        want = [Shard(cache_dims.index(p.dim))
+                if isinstance(p, Shard) and p.dim in cache_dims
+                else Replicate() for p in pl]
+        return as_dtensor(t, mesh).redistribute(mesh, want).to_local()
+
+    off, rows = 0, k_cache.to_local().shape[1]
+    for dim, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == 1:
+            off = off * mesh.shape[dim] + mesh.get_local_rank(dim)
+    off *= rows
+    _write_rows(k_cache.to_local(), v_cache.to_local(),
+                local(k_new, (0, 2, 3)), local(v_new, (0, 2, 3)),
+                local(lengths, (0,)), off)
+
+
+def _write_rows(k_cache, v_cache, k_new, v_new, lengths, off: int):
+    """``update_kv_cache`` on plain tensors whose rows start at sequence
+    position `off`."""
+    B, rows = k_cache.shape[:2]
     b_idx = torch.arange(B, device=k_cache.device)
-    idx = lengths.clamp(max=Smax - 1)
-    keep = (lengths < Smax)[:, None, None]
+    at = lengths - off
+    idx = at.clamp(min=0, max=rows - 1)
+    keep = ((at >= 0) & (at < rows))[:, None, None]
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
         cache[b_idx, idx] = torch.where(keep, new.to(cache.dtype),
                                         cache[b_idx, idx])

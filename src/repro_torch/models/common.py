@@ -73,7 +73,22 @@ def pad_vocab(vocab: int, multiple: int = 256) -> int:
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
-    return table.to(dtype)[tokens]
+    """The rows of `table` (in `dtype`) at `tokens`. A DTensor table is
+    gathered whole (``force_replicate``, counted as "embed") and each
+    rank looks up its own tokens locally: DTensor's rules for a lookup
+    in a vocab-sharded table, and for its backward, do not hold in every
+    torch release the port runs on."""
+    from repro_torch.sharding.constrain import as_dtensor, \
+        force_replicate, is_dtensor, local_shard_map
+
+    if not is_dtensor(table):
+        return table.to(dtype)[tokens]
+    mesh = table.device_mesh
+    tokens = as_dtensor(tokens, mesh)
+    full = force_replicate(table.to(dtype), "embed")
+    return local_shard_map(lambda t, k: t[k], mesh,
+                           in_specs=(full.placements, tokens.placements),
+                           out_spec=tokens.placements)(full, tokens)
 
 
 # ---------------------------------------------------------------- losses
@@ -88,22 +103,30 @@ def _mask_padded(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     return logits + mask
 
 
+def _token_xent(logits: torch.Tensor, labels: torch.Tensor,
+                vocab: int) -> torch.Tensor:
+    """(tokens, 1) float32: each token's logsumexp less its gold logit.
+    The gold logits are gathered from a (tokens, V) view and stay
+    (tokens, 1) until the subtraction: DTensor's gather from
+    vocab-sharded logits leaves a masked partial sum that must be
+    reduced at the index's shape."""
+    logits = _mask_padded(logits.float(), vocab)
+    logits = logits.reshape(-1, logits.shape[-1])
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    gold = torch.gather(logits, 1, labels.reshape(-1, 1).long())
+    return logz - gold
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  vocab: int) -> torch.Tensor:
     """Mean token cross-entropy in float32; logits may be vocab-padded
     (the padded entries masked with -1e9)."""
-    logits = _mask_padded(logits.float(), vocab)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return (logz - gold).mean()
+    return _token_xent(logits, labels, vocab).mean()
 
 
 def _chunk_xent_sum(xc: torch.Tensor, embed_t: torch.Tensor,
                     lc: torch.Tensor, vocab: int) -> torch.Tensor:
-    logits = _mask_padded(xc.float() @ embed_t.float().T, vocab)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
-    return (logz - gold).sum()
+    return _token_xent(xc.float() @ embed_t.float().T, lc, vocab).sum()
 
 
 def chunked_softmax_xent(x: torch.Tensor, embed_t: torch.Tensor,

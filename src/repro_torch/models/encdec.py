@@ -31,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import (
     SubDef,
     cross_kv,
+    decode_state_specs,
     sublayer_apply,
     sublayer_decode_state,
 )
@@ -45,11 +46,17 @@ from repro_torch.models.lm import (
     RunFlags,
     _index,
     _unstack,
+    input_logical_specs,
+    input_specs,
+    lift,
     load_tree,
+    norm_axes,
     norm_specs,
     remat,
+    sublayer_axes,
     sublayer_specs,
 )
+from repro_torch.sharding.constrain import logical_constraint
 from repro_torch.train.checkpoint import LeafSpec
 
 ENC_SUB = SubDef("attn", "dense", causal=False)
@@ -58,7 +65,8 @@ DEC_SUBS = [SubDef("attn", "none"), SubDef("cross_attn", "dense")]
 
 def param_specs(cfg: ModelConfig) -> dict:
     """Nested {name: LeafSpec} of the JAX ``EncDecModel``'s layout,
-    float32."""
+    float32: the SHAPES (the logical axes are the method
+    ``EncDecModel.param_specs()``)."""
     f32 = np.dtype(np.float32)
     V = pad_vocab(cfg.vocab_size)
     return {
@@ -91,6 +99,29 @@ class EncDecModel(nn.Module):
         parameters."""
         return self.specs
 
+    def param_specs(self) -> dict:
+        """The LOGICAL AXES of the parameters (the JAX
+        ``EncDecModel.param_specs()``), in ``param_shapes()``' layout."""
+        cfg = self.cfg
+        return {"embed": ("vocab", "fsdp"), "unembed": ("vocab", "fsdp"),
+                "enc": {"s0": lift(sublayer_axes(cfg, ENC_SUB))},
+                "dec": {f"s{j}": lift(sublayer_axes(cfg, sd))
+                        for j, sd in enumerate(DEC_SUBS)},
+                "enc_norm": norm_axes(cfg), "final_norm": norm_axes(cfg)}
+
+    def decode_state_spec_tree(self) -> dict:
+        """The logical axes of ``init_decode_state``'s tree."""
+        return {f"s{j}": lift(decode_state_specs(sd))
+                for j, sd in enumerate(DEC_SUBS)}
+
+    def input_specs(self, shape) -> dict:
+        """{name: TensorSpec} of every model input of this cell (no
+        memory), as the JAX ``input_specs``."""
+        return input_specs(self.cfg, shape)
+
+    def input_logical_specs(self, shape) -> dict:
+        return input_logical_specs(self.cfg, shape)
+
     def load_flat(self, flat: dict) -> "EncDecModel":
         """Load {path: numpy array or tensor}: exactly this config's
         names and shapes (``models.lm.load_tree``)."""
@@ -113,6 +144,7 @@ class EncDecModel(nn.Module):
         S = frames.shape[1]
         positions = torch.arange(S, device=self.device)
         x = frames.to(dtype) + sin_pos(positions, cfg.d_model).to(dtype)
+        x = logical_constraint(x, ("batch", "seq", None))
         for pl in _unstack(params["enc"], cfg.encoder_layers):
             def run(h, pl=pl):
                 return sublayer_apply(pl["s0"], h, cfg, ENC_SUB, dtype,

@@ -50,6 +50,7 @@ dict then holds the converted tensor."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -59,6 +60,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import (
     SubDef,
+    decode_state_specs,
     sublayer_apply,
     sublayer_decode_state,
 )
@@ -71,6 +73,11 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.mamba import d_inner, dt_rank
 from repro_torch.models.xlstm import m_inner, slstm_ff
+from repro_torch.sharding.constrain import (
+    active_policy,
+    logical_constraint,
+    use_policy,
+)
 from repro_torch.train.checkpoint import LeafSpec
 
 # leaves kept in float32 whatever the working dtype (module doc)
@@ -91,24 +98,21 @@ class RunFlags:
     ``chunked_loss`` (0 or a sequence chunk) computes the loss without
     the full logits; ``flash_vjp`` is accepted and takes the one
     attention backward the port has (``models.attention``'s doc).
-    ``moe_impl="shard_map"`` needs an expert-parallel mesh, which waits
-    for ``sharding/``: it raises."""
+    ``moe_impl="shard_map"`` takes the expert-parallel all-to-all
+    (``models.moe.moe_ep``) where the active sharding policy has an
+    eligible mesh, else the sort route, as the JAX package does."""
     dtype: str = "bfloat16"
     remat: str = "full"              # full | dots | none
     skip_masked_blocks: bool = False
     chunked_loss: int = 0            # 0 = dense logits; else seq-chunk size
     flash_vjp: bool = False
-    moe_impl: str = "sort"           # sort (shard_map: ROADMAP.md item 6)
+    moe_impl: str = "sort"           # sort | shard_map (EP all-to-all)
 
     def __post_init__(self):
         if self.remat not in ("full", "dots", "none"):
             raise ValueError(f"remat {self.remat!r}: full | dots | none")
-        if self.moe_impl == "shard_map":
-            raise NotImplementedError(
-                "moe_impl='shard_map' (expert-parallel all-to-all) needs "
-                "sharding/: ROADMAP.md queue 1, item 6")
-        if self.moe_impl != "sort":
-            raise ValueError(f"moe_impl {self.moe_impl!r}")
+        if self.moe_impl not in ("sort", "shard_map"):
+            raise ValueError(f"moe_impl {self.moe_impl!r}: sort | shard_map")
 
 
 def layout(cfg: ModelConfig) -> list:
@@ -140,60 +144,77 @@ def layout(cfg: ModelConfig) -> list:
     raise ValueError(f"no layout for family {cfg.family}")
 
 
-def sublayer_specs(cfg: ModelConfig, R: int, sd: SubDef) -> dict:
-    """{name: LeafSpec} of R stacked sublayers `sd`, float32, the JAX
-    ``sublayer_init``'s layout with a leading dim R."""
-    f32 = np.dtype(np.float32)
+def _norm_leaves(cfg: ModelConfig) -> dict:
     D = cfg.d_model
+    norm = {"scale": ((D,), (None,))}
+    if cfg.norm_type == "layernorm":
+        norm["bias"] = ((D,), (None,))
+    return norm
 
-    def mats(shapes: dict) -> dict:
-        return {k: LeafSpec((R,) + tuple(s), f32) for k, s in shapes.items()}
 
-    def norm():
-        if cfg.norm_type == "layernorm":
-            return mats({"scale": (D,), "bias": (D,)})
-        return mats({"scale": (D,)})
+def sublayer_leaves(cfg: ModelConfig, sd: SubDef) -> dict:
+    """{name: (shape, logical axes)} of one sublayer `sd` (no leading
+    repeats dim): the JAX ``sublayer_init``'s shapes, and the axes it
+    returns beside them (a tuple of names and Nones per leaf)."""
+    D = cfg.d_model
+    norm = _norm_leaves(cfg)
 
     def mlp(d_ff):
+        out = {"w_up": ((D, d_ff), ("fsdp", "tp")),
+               "w_down": ((d_ff, D), ("tp", "fsdp"))}
         if cfg.mlp_type == "swiglu":
-            return mats({"w_gate": (D, d_ff), "w_up": (D, d_ff),
-                         "w_down": (d_ff, D)})
-        return mats({"w_up": (D, d_ff), "w_down": (d_ff, D)})
+            out["w_gate"] = ((D, d_ff), ("fsdp", "tp"))
+        return out
 
     def attn():
-        out = mats({"wq": (D, cfg.q_dim), "wk": (D, cfg.kv_dim),
-                    "wv": (D, cfg.kv_dim), "wo": (cfg.q_dim, D)})
+        q, kv = cfg.q_dim, cfg.kv_dim
+        out = {"wq": ((D, q), ("fsdp", "heads")),
+               "wk": ((D, kv), ("fsdp", "kv_heads")),
+               "wv": ((D, kv), ("fsdp", "kv_heads")),
+               "wo": ((q, D), ("heads", "fsdp"))}
         if cfg.use_bias:
-            out.update(mats({"bq": (cfg.q_dim,), "bk": (cfg.kv_dim,),
-                             "bv": (cfg.kv_dim,), "bo": (D,)}))
+            out.update({"bq": ((q,), (None,)), "bk": ((kv,), (None,)),
+                        "bv": ((kv,), (None,)), "bo": ((D,), (None,))})
         return out
 
     def mamba():
         Din, N, dtr = d_inner(cfg), cfg.d_state, dt_rank(cfg)
-        return mats({"in_proj": (D, 2 * Din), "conv_w": (cfg.d_conv, Din),
-                     "conv_b": (Din,), "x_proj": (Din, dtr + 2 * N),
-                     "dt_proj": (dtr, Din), "dt_bias": (Din,),
-                     "A_log": (Din, N), "D": (Din,), "out_proj": (Din, D)})
+        return {"in_proj": ((D, 2 * Din), ("fsdp", "tp")),
+                "conv_w": ((cfg.d_conv, Din), (None, "tp")),
+                "conv_b": ((Din,), ("tp",)),
+                "x_proj": ((Din, dtr + 2 * N), ("tp", None)),
+                "dt_proj": ((dtr, Din), (None, "tp")),
+                "dt_bias": ((Din,), ("tp",)),
+                "A_log": ((Din, N), ("tp", None)), "D": ((Din,), ("tp",)),
+                "out_proj": ((Din, D), ("tp", "fsdp"))}
 
     def mlstm():
         Din, H = m_inner(cfg), cfg.num_heads
-        return mats({"up": (D, 2 * Din), "wq": (Din, Din), "wk": (Din, Din),
-                     "wv": (Din, Din), "w_if": (Din, 2 * H),
-                     "b_if": (2 * H,), "down": (Din, D),
-                     "norm_scale": (Din,)})
+        return {"up": ((D, 2 * Din), ("fsdp", "tp")),
+                "wq": ((Din, Din), ("tp", "heads")),
+                "wk": ((Din, Din), ("tp", "heads")),
+                "wv": ((Din, Din), ("tp", "heads")),
+                "w_if": ((Din, 2 * H), ("tp", None)),
+                "b_if": ((2 * H,), (None,)),
+                "down": ((Din, D), ("tp", "fsdp")),
+                "norm_scale": ((Din,), ("tp",))}
 
     def slstm():
         H, ff = cfg.num_heads, slstm_ff(cfg)
-        return mats({"conv_w": (cfg.d_conv, D), "w_x": (D, 4 * D),
-                     "r": (4, H, D // H, D // H), "b": (4 * D,),
-                     "ff_up": (D, ff), "ff_down": (ff, D)})
+        return {"conv_w": ((cfg.d_conv, D), (None, "tp")),
+                "w_x": ((D, 4 * D), ("fsdp", "tp")),
+                "r": ((4, H, D // H, D // H), (None, "heads", None, None)),
+                "b": ((4 * D,), (None,)),
+                "ff_up": ((D, ff), ("fsdp", "tp")),
+                "ff_down": ((ff, D), ("tp", "fsdp"))}
 
     def moe():
         E, F = cfg.num_experts, cfg.d_ff
-        experts = {"w_up": (E, D, F), "w_down": (E, F, D)}
+        out = {"router": ((D, E), ("fsdp", None)),
+               "w_up": ((E, D, F), ("expert", "fsdp", "tp_inner")),
+               "w_down": ((E, F, D), ("expert", "tp_inner", "fsdp"))}
         if cfg.mlp_type == "swiglu":
-            experts["w_gate"] = (E, D, F)
-        out = mats({"router": (D, E), **experts})
+            out["w_gate"] = ((E, D, F), ("expert", "fsdp", "tp_inner"))
         if cfg.shared_experts:
             out["shared"] = mlp(F * cfg.shared_experts)
         if cfg.dense_residual:
@@ -204,24 +225,95 @@ def sublayer_specs(cfg: ModelConfig, R: int, sd: SubDef) -> dict:
               "mlstm": mlstm, "slstm": slstm}
     if sd.mixer not in mixers:
         raise ValueError(sd.mixer)
-    p = {"norm1": norm(), "mixer": mixers[sd.mixer]()}
+    p = {"norm1": norm, "mixer": mixers[sd.mixer]()}
     if sd.ffn != "none":
-        p["norm2"] = norm()
+        p["norm2"] = norm
         p["ffn"] = moe() if sd.ffn == "moe" else mlp(sd.d_ff or cfg.d_ff)
     return p
+
+
+def _map_leaves(fn, tree: dict) -> dict:
+    """`fn((shape, axes))` over a ``sublayer_leaves`` tree."""
+    return {k: _map_leaves(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def sublayer_specs(cfg: ModelConfig, R: int, sd: SubDef) -> dict:
+    """{name: LeafSpec} of R stacked sublayers `sd`, float32, the JAX
+    ``sublayer_init``'s layout with a leading dim R."""
+    f32 = np.dtype(np.float32)
+    return _map_leaves(lambda leaf: LeafSpec((R,) + leaf[0], f32),
+                       sublayer_leaves(cfg, sd))
+
+
+def sublayer_axes(cfg: ModelConfig, sd: SubDef) -> dict:
+    """The logical axes of one sublayer's leaves (no leading repeats
+    dim), as the JAX ``sublayer_init`` returns them."""
+    return _map_leaves(lambda leaf: leaf[1], sublayer_leaves(cfg, sd))
+
+
+def lift(tree):
+    """Every spec leaf of `tree` with a leading None (the stacked
+    repeats dim)."""
+    if isinstance(tree, dict):
+        return {k: lift(v) for k, v in tree.items()}
+    return (None,) + tuple(tree)
+
+
+class TensorSpec(NamedTuple):
+    """Shape and torch dtype of a model input, without memory (the JAX
+    package's ``ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ModelConfig, shape) -> dict:
+    """{name: TensorSpec} of every model input of a ``ShapeConfig``
+    cell, for a decoder-only or an encoder-decoder config."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16, ts = torch.int32, torch.bfloat16, TensorSpec
+    if shape.kind == "decode":
+        return {"tokens": ts((B,), i32), "pos": ts((B,), i32)}
+    if cfg.is_encdec:
+        out = {"frames": ts((B, S, cfg.d_model), bf16)}
+        if shape.kind == "train":
+            out.update(tokens=ts((B, S), i32), labels=ts((B, S), i32))
+        return out
+    T = S - cfg.num_patches if cfg.family == "vlm" else S
+    out = {"tokens": ts((B, T), i32)}
+    if cfg.family == "vlm":
+        out["patches"] = ts((B, cfg.num_patches, cfg.d_model), bf16)
+    if shape.kind == "train":
+        out["labels"] = ts((B, T), i32)
+    return out
+
+
+def input_logical_specs(cfg: ModelConfig, shape) -> dict:
+    """The logical axes of ``input_specs``' entries."""
+    if shape.kind == "decode":
+        return {"tokens": ("batch",), "pos": ("batch",)}
+    spec = {"tokens": ("batch", None), "labels": ("batch", None),
+            "patches": ("batch", None, None), "frames": ("batch", None, None)}
+    return {k: spec[k] for k in input_specs(cfg, shape)}
 
 
 def norm_specs(cfg: ModelConfig) -> dict:
     """A final norm's {name: LeafSpec}, float32."""
     f32 = np.dtype(np.float32)
-    names = ("scale", "bias") if cfg.norm_type == "layernorm" \
-        else ("scale",)
-    return {k: LeafSpec((cfg.d_model,), f32) for k in names}
+    return _map_leaves(lambda leaf: LeafSpec(leaf[0], f32),
+                       _norm_leaves(cfg))
+
+
+def norm_axes(cfg: ModelConfig) -> dict:
+    """A final norm's logical axes."""
+    return _map_leaves(lambda leaf: leaf[1], _norm_leaves(cfg))
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    """Nested {name: LeafSpec} of the JAX package's layout, float32; for
-    an encoder-decoder config, ``models.encdec.param_specs``'s."""
+    """Nested {name: LeafSpec} of the JAX package's layout, float32: the
+    SHAPES of the parameters (the logical axes are the method
+    ``DecoderLM.param_specs()``); for an encoder-decoder config,
+    ``models.encdec.param_specs``'s."""
     if cfg.is_encdec:
         from repro_torch.models.encdec import param_specs as encdec_specs
         return encdec_specs(cfg)
@@ -419,11 +511,20 @@ def load_tree(specs: dict, flat: dict, device, dtype) -> dict:
 
 def remat(flags: RunFlags, run, x: torch.Tensor) -> torch.Tensor:
     """``run(x)`` under the ``flags.remat`` policy (without autograd,
-    plainly)."""
+    plainly). A recomputation runs under the sharding policy its forward
+    ran under: autograd may recompute on another thread (a CUDA
+    device's), where the thread-local policy is not set."""
     from torch.utils.checkpoint import checkpoint
 
     if flags.remat == "none" or not torch.is_grad_enabled():
         return run(x)
+    act = active_policy()
+    if act is not None:
+        inner = run
+
+        def run(h):
+            with use_policy(*act):
+                return inner(h)
     if flags.remat == "full":
         return checkpoint(run, x, use_reentrant=False)
     return checkpoint(run, x, use_reentrant=False, context_fn=_dots_policy)
@@ -446,6 +547,35 @@ class DecoderLM(nn.Module):
         """The nested {name: LeafSpec} (shape, float32) of this config's
         parameters, the tree ``tree_from_flat`` rebuilds."""
         return self.specs
+
+    def param_specs(self) -> dict:
+        """The LOGICAL AXES of the parameters (the JAX
+        ``DecoderLM.param_specs()``): the layout of ``param_shapes()``
+        with a tuple of axis names and Nones per leaf (the module-level
+        ``param_specs(cfg)`` gives the shapes)."""
+        cfg = self.cfg
+        tree = {"embed": ("vocab", "fsdp")}
+        if not cfg.tie_embeddings:
+            tree["unembed"] = ("vocab", "fsdp")
+        for gi, (_, subs) in enumerate(self.layout):
+            tree[f"g{gi}"] = {f"s{j}": lift(sublayer_axes(cfg, sd))
+                              for j, sd in enumerate(subs)}
+        tree["final_norm"] = norm_axes(cfg)
+        return tree
+
+    def decode_state_spec_tree(self) -> dict:
+        """The logical axes of ``init_decode_state``'s tree."""
+        return {f"g{gi}": {f"s{j}": lift(decode_state_specs(sd))
+                           for j, sd in enumerate(subs)}
+                for gi, (_, subs) in enumerate(self.layout)}
+
+    def input_specs(self, shape) -> dict:
+        """{name: TensorSpec} of every model input of this cell (no
+        memory), as the JAX ``input_specs``."""
+        return input_specs(self.cfg, shape)
+
+    def input_logical_specs(self, shape) -> dict:
+        return input_logical_specs(self.cfg, shape)
 
     def load_flat(self, flat: dict) -> "DecoderLM":
         """Load {path: numpy array or tensor}: exactly this config's
@@ -502,7 +632,9 @@ class DecoderLM(nn.Module):
                     st = g_state[f"s{j}"]
                     view = {k: v[r] for k, v in st.items()}
                     x, new = sublayer_apply(pl[f"s{j}"], x, cfg, sd, dtype,
-                                            mode=mode, state=view, **where)
+                                            mode=mode, state=view,
+                                            moe_impl=self.flags.moe_impl,
+                                            **where)
                     if new is not view:
                         for k, v in new.items():
                             st[k][r].copy_(v)
@@ -519,9 +651,11 @@ class DecoderLM(nn.Module):
                         h, _ = sublayer_apply(
                             pl[f"s{j}"], h, cfg, sd, dtype, mode="train",
                             positions=positions,
-                            skip_blocks=flags.skip_masked_blocks)
+                            skip_blocks=flags.skip_masked_blocks,
+                            moe_impl=flags.moe_impl)
                     return h
                 x = remat(flags, run, x)
+            x = logical_constraint(x, ("batch", "seq", None))
         return x
 
     def _embed(self, params: dict, batch: dict) -> torch.Tensor:
@@ -532,7 +666,7 @@ class DecoderLM(nn.Module):
         if self.cfg.family == "vlm":
             patches = torch.as_tensor(batch["patches"]).to(self.device)
             x = torch.cat([patches.to(self.dtype), x], dim=1)
-        return x
+        return logical_constraint(x, ("batch", "seq", None))
 
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
@@ -557,6 +691,7 @@ class DecoderLM(nn.Module):
             return chunked_softmax_xent(x, table.to(dtype), labels,
                                         cfg.vocab_size, flags.chunked_loss)
         logits = x @ table.to(dtype).T
+        logits = logical_constraint(logits, ("batch", "seq", "vocab"))
         return softmax_xent(logits, labels, cfg.vocab_size)
 
     @torch.no_grad()

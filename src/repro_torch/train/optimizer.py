@@ -11,8 +11,8 @@ absmax / 127 and rounded half to even (``torch.round``, as
 ``_SHARD_PAD`` so that ``q`` and ``scale`` have the JAX package's shapes
 (its padding lets the quantized state shard on any mesh). Updates are
 functional: ``adamw_update`` returns new tensors, as the JAX function
-does. The JAX package's ``opt_state_specs`` (the moments' shardings)
-waits for ``sharding/`` (ROADMAP.md queue 1, item 6).
+does. ``opt_state_specs`` gives the state's logical axes (the moments
+mirror the params; int8 moments shard their block rows FSDP-style).
 """
 from __future__ import annotations
 
@@ -110,6 +110,23 @@ def init_opt_state(params, cfg: OptConfig) -> dict:
             for p in leaves])
     return {"m": zeros(), "v": zeros(),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def opt_state_specs(param_specs, cfg: OptConfig):
+    """Moment shardings mirror the params (plus scale arrays for int8)."""
+    def lift(ax):
+        if cfg.moments == "int8":
+            # quantized layout is flattened, nblocks padded to _SHARD_PAD:
+            # shard the block rows FSDP-style
+            return {"q": ("fsdp", None), "scale": ("fsdp", None)}
+        return ax
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return lift(node)
+    moments = walk(param_specs)
+    return {"m": moments, "v": moments, "step": None}
 
 
 def global_norm(tree) -> torch.Tensor:

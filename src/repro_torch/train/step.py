@@ -52,14 +52,17 @@ def train_state_template(cfg, opt_cfg: OptConfig) -> dict:
 
 def make_train_step(model, opt_cfg: OptConfig):
     """``train_step(state, batch) -> (new state, {"loss", "grad_norm"})``
-    (device scalars)."""
+    (device scalars). On DTensors (under ``sharding.constrain.
+    use_policy``) each gradient takes its parameter's layout, so the new
+    state keeps the old one's."""
     def train_step(state, batch):
         named = canonical_paths(state["params"])
         leaves = [p.detach().requires_grad_() for _, p in named]
         with torch.enable_grad():
             loss = model.loss(nest({n: p for (n, _), p in zip(named, leaves)}),
                               batch)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = [_like(g, p) for g, p in
+                     zip(torch.autograd.grad(loss, leaves), leaves)]
         with torch.no_grad():
             new_params, new_opt, gn = adamw_update(
                 state["params"],
@@ -68,6 +71,17 @@ def make_train_step(model, opt_cfg: OptConfig):
         metrics = {"loss": loss.detach(), "grad_norm": gn}
         return {"params": new_params, "opt": new_opt}, metrics
     return train_step
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its parameter's layout (the state keeps its
+    shardings from step to step, as the JAX step's out_shardings pin
+    them); a plain gradient as it is."""
+    from repro_torch.sharding.constrain import is_dtensor
+
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _serve(model, params):

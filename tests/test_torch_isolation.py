@@ -59,7 +59,13 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.models.xlstm", "repro_torch.models.encdec",
               "repro_torch.configs.xlstm_350m",
               "repro_torch.configs.whisper_base",
-              "repro_torch.configs.pixtral_12b"):
+              "repro_torch.configs.pixtral_12b",
+              "repro_torch.sharding", "repro_torch.sharding.rules",
+              "repro_torch.sharding.constrain",
+              "repro_torch.sharding.collectives",
+              "repro_torch.launch.mesh", "repro_torch.launch.modelflops",
+              "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+              "repro_torch.launch.sweep"):
         assert m in res["modules"]
 
 

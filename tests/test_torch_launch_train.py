@@ -3,8 +3,9 @@ variants and data on the CPU: the flags against the JAX launcher's
 (read from that file's source, not run), a ``--reduced`` run followed
 by ``--resume`` (which must start where the first run's last checkpoint
 left it and print the JAX launcher's lines), ``VARIANTS`` equal to the
-JAX package's, ``get_variant``'s flags, optimizer overrides and policy
-dict, and ``global_batch`` equal to the JAX one for dense configs
+JAX package's, ``get_variant``'s flags, optimizer overrides and
+``ShardingPolicy`` equal to the JAX one's for every variant (each of
+which builds its model), and ``global_batch`` equal to the JAX one for dense configs
 (exact)."""
 import re
 from pathlib import Path
@@ -19,11 +20,14 @@ from repro.configs import get_config as jax_config  # noqa: E402
 from repro.configs.base import SHAPES as JSHAPES  # noqa: E402
 from repro.data.synthetic import global_batch as jax_batch  # noqa: E402
 from repro.launch.variants import VARIANTS as JVARIANTS  # noqa: E402
+from repro.launch.variants import get_variant as jax_variant  # noqa: E402
 from repro_torch.configs import SHAPES, get_config  # noqa: E402
 from repro_torch.data.synthetic import Prefetcher, global_batch  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.variants import VARIANTS, get_variant  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.lm import RunFlags  # noqa: E402
+from repro_torch.sharding.rules import DEFAULT_RULES, ShardingPolicy  # noqa: E402
 
 REF = Path(__file__).resolve().parents[1] / "src/repro/launch/train.py"
 # the documented divergences (module doc of the port's launcher)
@@ -95,17 +99,20 @@ def test_variants_match_the_reference():
     assert VARIANTS == JVARIANTS
     cfg = get_config("smollm-360m")
     policy, flags, opt = get_variant("remat_dots", cfg, SHAPES["train_4k"])
-    assert flags == RunFlags(remat="dots") and opt == {} and policy == {}
+    assert flags == RunFlags(remat="dots") and opt == {}
+    assert policy == ShardingPolicy(name="remat_dots")
     policy, flags, opt = get_variant("opt8bit", cfg, SHAPES["train_4k"])
     assert opt == {"moments": "int8"} and flags == RunFlags()
     policy, _, _ = get_variant("fsdp_pods", cfg, SHAPES["train_4k"])
-    assert policy == {"fsdp": ("pod", "data")}
-    for name, spec in VARIANTS.items():
-        if spec.get("flags", {}).get("moe_impl") == "shard_map":
-            with pytest.raises(NotImplementedError, match="item 6"):
-                get_variant(name, cfg, SHAPES["train_4k"])
-        else:
-            get_variant(name, cfg, SHAPES["train_4k"])
+    assert policy.rules == dict(DEFAULT_RULES, fsdp=("pod", "data"))
+    for name in VARIANTS:
+        policy, flags, opt = get_variant(name, cfg, SHAPES["train_4k"])
+        jpolicy, jflags, jopt = jax_variant(name, jax_config(cfg.name),
+                                            JSHAPES["train_4k"])
+        assert isinstance(policy, ShardingPolicy)
+        assert (policy.name, policy.rules) == (jpolicy.name, jpolicy.rules)
+        assert flags.__dict__ == jflags.__dict__ and opt == jopt
+        build_model(cfg.reduced(), flags, device="cpu")
     assert {k: tuple(v.__dict__.values()) for k, v in SHAPES.items()} == \
         {k: tuple(v.__dict__.values()) for k, v in JSHAPES.items()}
 

@@ -73,8 +73,29 @@ def test_chunked_loss_refuses_a_ragged_sequence(seq, chunk):
 
 
 def test_moe_shard_map_raises_naming_item_6():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        RunFlags(moe_impl="shard_map")
+    """Item 6 is ported: ``moe_impl="shard_map"`` builds, and with no
+    sharding policy active it takes the sort route, as the JAX
+    package's does (the same output, bit for bit); an unknown
+    ``moe_impl`` or ``remat`` still raises."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.models.lm import init_flat
+    from repro_torch.train.step import nest
+
+    assert RunFlags(moe_impl="shard_map").moe_impl == "shard_map"
+    cfg = get_config("kimi-k2-1t-a32b").reduced()
+
+    def layer0(t):
+        if isinstance(t, dict):
+            return {k: layer0(v) for k, v in t.items()}
+        return torch.from_numpy(t[0])
+    p = layer0(nest(init_flat(cfg, 0))["g1"]["s0"]["ffn"])
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 8, cfg.d_model)).astype(np.float32))
+    assert torch.equal(moe_apply(p, x, cfg, torch.float32, impl="shard_map"),
+                       moe_apply(p, x, cfg, torch.float32, impl="sort"))
+    with pytest.raises(ValueError):
+        RunFlags(moe_impl="gather")
     with pytest.raises(ValueError):
         RunFlags(remat="some")
 
