@@ -48,7 +48,11 @@ Phases (any failure exits non-zero):
    chunk (p50/p99 printed). Then an engine of ``max_len`` 8 serves a
    10-token prompt beside a 2-token one: the batch finishes and the
    short one's tokens equal its run alone (ROADMAP.md §3, fault 1).
-4. L2 path — on phase 3's image: worker A (``l2_nodes=12``, 4-of-5
+   Phases 4-6 run on the cut image: phase 3's tree cut to its first
+   ``CUT_LAYERS`` (8) of 32 layers at full width (0.503 GB), published
+   into phase 3's store; a restore of it must be byte-identical, and the
+   cut weights loaded directly give the greedy tokens phases 4-6 repeat.
+4. L2 path — on the cut image: worker A (``l2_nodes=12``, 4-of-5
    stripes, latencies seeded from ``--seed``) restores with an empty
    L1, so every chunk comes from the origin and fills the L2 once (one
    parity launch per origin GET). (4b, the paper's Fig. 9) Every
@@ -73,15 +77,15 @@ Phases (any failure exits non-zero):
    make one origin GET per distinct chunk (byte check). The GF(256)
    kernel is then timed at the largest erasure-signature group of B's
    reconstruction.
-5. peer storm — on phase 3's image, a cold-start storm through the peer
+5. peer storm — on the cut image, a cold-start storm through the peer
    tier with a flaky origin (``FaultyStore``, 2% transient GET errors):
    workers 0-3, each an ``ImageService`` with an empty 256 MiB L1, no
    L2, retries (5 attempts) and a 50% circuit breaker, and its client
    of one 5-worker ``PeerMesh`` (binary provisioning trees), start
    together on their own threads (streamed reads, fused kernel). Worker
-   0 cold-starts SmolLM-360M and serves phase 3's requests; workers 1-3
+   0 cold-starts it and serves phase 3's prompts; workers 1-3
    restore the tree. The first worker that leads at most 1% of the
-   flights and has served 200 transfers stops serving (crashed) while
+   flights and has served 100 transfers stops serving (crashed) while
    its own restore goes on. Checks:
    every tree and worker 0's tokens equal phase 3's; the fleet's origin
    GETs lie between the distinct chunk count and twice it; peer
@@ -94,14 +98,14 @@ Phases (any failure exits non-zero):
    and the restored tree is byte-identical.
 6. checkpoint roll under a live restore — on a fresh store, a
    ``GenerationalGC`` and services sharing its pins and refcounts and
-   one name-index sidecar: a trainer publishes phase 3's tree A as
+   one name-index sidecar: a trainer publishes the cut tree A as
    ``ckpt-0`` into R1 (SHA and AES kernels); a restarted trainer (a new
-   service) publishes B, A with the last two layers of every
+   service) publishes B, A with its last two layers of every
    ``g0/s0/*`` tensor redrawn, as ``ckpt-1``: it must skip encrypting
    exactly the chunks of B that hashlib finds in A, and upload the
    rest. ``retire_image(R1, "ckpt-0")`` must return A's chunks that B
    lacks. A reader (empty L1, no L2) restores B streamed from R1 while
-   its origin GETs from the 1000th on are held: meanwhile a sweep of R1
+   its origin GETs from the 350th on are held: meanwhile a sweep of R1
    is deferred and deletes nothing, ``new_root`` gives R2 and
    ``migrate`` moves one manifest and copies B's chunks. Released, the
    restore must equal B; then the sweep reclaims exactly the dead
@@ -127,8 +131,9 @@ Phases (any failure exits non-zero):
    give up no retry. Then ``DecoderLM.prefill``: 4 prompts of 256
    tokens at SmolLM-360M's full width in bfloat16 against prefill by
    decoding (argmax equal, logits within ``PREFILL_BF16_TOL``), and
-   starcoder2-15b at full width cut to 2 of 40 layers, one 4608-token
-   prompt past its 4096-token window, in float32, with the card route
+   starcoder2-15b at full width cut to 2 of 40 layers (float32 weights
+   drawn on the card), one 4608-token prompt past its 4096-token
+   window, in float32, with the card route
    of ``flash_attn`` held against its plain blocked version at every
    layer (``FLASH_F32_TOL``); prefill ms and peak memory printed.
 8. the MoE and hybrid families and the expert-shard restore. (a) At
@@ -161,8 +166,9 @@ Phases (any failure exits non-zero):
    the cold start. (c) ``python -m repro_torch.launch.serve --arch
    jamba-v0.1-52b --publish`` (reduced) in process serves all 8
    requests.
-9. a crash and resume. (a) SmolLM-360M at full width (weights drawn on
-   the card from ``--seed``) trains under the ``baseline`` variant
+9. a crash and resume. (a) SmolLM-360M at full width, cut to
+   ``TRAIN_LAYERS`` (8) of its 32 layers (weights drawn on the card from
+   ``--seed``), trains under the ``baseline`` variant
    (float32 master weights and Adam moments, bfloat16 compute, full
    remat), ``LoopConfig(batch=8, seq=512, ckpt_every=4)``, with a
    ``CheckpointManager`` whose ``ImageService`` (``torch-fused``) sits
@@ -194,9 +200,9 @@ Phases (any failure exits non-zero):
    "opt8bit", "--store", ...])``, then the same with ``--resume``,
    which must start at step 4; both must print the reference's lines.
 10. the xLSTM, encoder-decoder and VLM families. (a) xlstm-350m at
-   published width and full depth (24 layers as 12 mLSTM/sLSTM pairs,
-   d_model 1024, 4 heads, vocab 50304 padded to 50432, untied; ~427.7 M
-   parameters) from ``init_flat`` on the host (``--seed``): its
+   published width cut to ``XLSTM_LAYERS`` (12) of its 24 layers (6
+   mLSTM/sLSTM pairs, d_model 1024, 4 heads, vocab 50304 padded to
+   50432, untied; ~265.5 M parameters) from ``init_flat`` on the host (``--seed``): its
    float32 tree is published through an ``ImageService`` (SHA-256 and
    AES kernels) and cold-started through a second service with an
    empty L1 (fused kernel); every tensor must be byte-identical to the
@@ -233,8 +239,8 @@ Phases (any failure exits non-zero):
    limit.
 11. sharding on ``torch.distributed``. (a) A world-1 NCCL process group
    and a (1, 1) ``DeviceMesh``: under ``use_policy(mesh,
-   ShardingPolicy())`` SmolLM-360M at full width trains 3 steps at phase
-   9's 8 x 512 tokens (baseline variant, ``--seed``) with its params and
+   ShardingPolicy())`` phase 9's SmolLM-360M (full width, 8 layers)
+   trains 3 steps at phase 9's 8 x 512 tokens (baseline variant, ``--seed``) with its params and
    Adam state as DTensors placed by ``param_specs()`` and
    ``opt_state_specs``; the losses must equal phase 9's first three
    within ``TRAIN_LOSS_TOL`` relative, and the step ms is printed beside
@@ -242,7 +248,7 @@ Phases (any failure exits non-zero):
    (``launch.roofline.count_step``) must equal a fake-tensor trace of
    the same cell (``launch.dryrun.build_step``) exactly: FLOPs, unfused
    bytes and collective bytes (0); ``model_flops`` must be
-   7.732474675200e12. ``step_time_s``, the measured step, model_flops /
+   1.933136363520e12. ``step_time_s``, the measured step, model_flops /
    (measured x H100 peak) and ``max_memory_allocated`` beside the
    trace's ``per_device_total`` are printed. (c) Started before phase
    10 in their own low-priority processes: ``python -m
@@ -256,7 +262,36 @@ Phases (any failure exits non-zero):
    printed as a roofline projection at H100 SXM5 data-sheet peaks, never
    as a card time.
 
-The last lines are the launch counts of phases 3 to 11, the kernel
+12. the port's four examples, each through its ``main(argv)`` in
+   process (``repro_torch.examples``), at the sizes they run by default.
+   (a) ``quickstart`` on SmolLM-360M at full width (weights from
+   ``--seed``): the restores of the fine-tuned tensor (before and after
+   the GC roll) and the half shard of ``embed`` must be byte-identical to
+   the source tree, the chunks touched must equal the chunks the half
+   of ``embed`` spans in the layout, the fine-tune must store exactly
+   its chunks the base lacks and the roll migrate exactly the two
+   images' distinct chunks (hashlib counts). (b) ``serve_finetunes``
+   with ``--dtype float32``: ten fine-tunes, each of one tensor, cold
+   started through one shared service (a 1.61 GB L1, a 6-node L2 whose
+   ``cache-000`` fails before the fourth start); as each replica serves,
+   its weights must be bit-equal to its fine-tune (on the card) and
+   its tokens those of the fine-tune loaded directly
+   (``_serve_direct``), and it must make one origin GET for each of its
+   chunks no earlier image held, so the fleet's origin GETs equal the
+   distinct chunks across the ten images (hashlib). (c)
+   ``coldstart_drill`` (24 functions on 3 bases, 512 KiB chunks, four
+   300-invocation phases): no start rejected, post-recovery's origin
+   fraction no higher than the cold restart's and within 1.5x steady's
+   plus 0.01. (d) ``train_lm`` (the ~100M config, EXAMPLE_TRAIN_STEPS
+   steps, checkpoints every 50, a crash half way): the resumed trainer
+   must start at the last checkpoint and its first loss equal, bitwise,
+   that of an uninterrupted trainer run to that step, and every loss
+   must stay within ``LOSS_CHANCE_TOL`` of ln(vocab): the synthetic
+   labels follow the inputs only at position 0 (in the JAX package too),
+   so the JAX example's LEARNING verdict is printed, not required. Every
+   time printed carries the card's name and power limit.
+
+The last lines are the launch counts of phases 3 to 12, the kernel
 table (``{"kernels": [...]}``, each kernel's launches counted on the path
 that runs it, and on every path in ``launches_by_phase``), the
 ``nvidia-smi`` name/power-limit line and
@@ -335,6 +370,12 @@ KIB512 = 512 << 10
 # (core.decode.KERNEL_TILE_BYTES), so their numbers stay comparable
 # with runs from before "auto" autotuned; phase 7 leaves it at "auto"
 TILE = 128 << 20
+# phases 4-6 run on phase 3's SmolLM-360M tree cut to its first CUT_LAYERS
+# of 32 layers (full width; a 0.503 GB image of ~960 chunks in place of
+# 1.449 GB and 2763), published into phase 3's store under its key, so
+# that the whole script, phase 12 included, stays well inside its time
+# limit; phase 3 keeps all 32 layers
+CUT_LAYERS = 8
 # phase 3: the engine's max_len for a prompt of max_len + 2 tokens
 # beside a 2-token one (ROADMAP.md §3, fault 1)
 PAST_MAX_LEN = 8
@@ -378,7 +419,9 @@ FAMILY_BATCH = 4
 MOE_LOOP_TOL = 2e-2
 # phase 8b: expert-parallel restores of a jamba image by EP_SIZE ranks
 EP_SIZE = 4
-# phase 9: SmolLM-360M at full width trains under the launcher's
+# phase 9: SmolLM-360M at full width, cut to TRAIN_LAYERS of its 32
+# layers (so that phase 12 fits: a 1.51 GB checkpoint in place of
+# 4.35 GB), trains under the launcher's
 # "baseline" variant (float32 master weights and moments, bfloat16
 # compute, full remat), TRAIN_BATCH x TRAIN_SEQ tokens a step, a
 # checkpoint every TRAIN_CKPT_EVERY steps; trainer A crashes before step
@@ -388,6 +431,7 @@ EP_SIZE = 4
 # checkpoint. Elastic recovery of w-0-2 of a (1, RECOVERY_MP) grid, dim
 # 0 of every tensor split RECOVERY_MP ways, may fetch at most
 # RECOVERY_MAX_FRACTION of the step-8 image's chunks
+TRAIN_LAYERS = 8
 TRAIN_BATCH = 8
 TRAIN_SEQ = 512
 TRAIN_CKPT_EVERY = 4
@@ -445,7 +489,9 @@ PATH_KERNELS = {3: ("fused_verify_decrypt", "sha256_many",
                 9: ("sha256_many", "aes_encrypt_many",
                     "fused_verify_decrypt"),
                 10: ("sha256_many", "aes_encrypt_many",
-                     "fused_verify_decrypt")}
+                     "fused_verify_decrypt"),
+                12: ("sha256_many", "aes_encrypt_many",
+                     "fused_verify_decrypt", "parity")}
 # phase 10: the xLSTM, encoder-decoder and VLM families. xlstm-350m and
 # whisper-base serve FAMILY_REQUESTS requests of PHASE10_NEW new tokens
 # at batch FAMILY_BATCH; whisper-base decodes PHASE10_NEW greedy steps
@@ -454,6 +500,10 @@ PATH_KERNELS = {3: ("fused_verify_decrypt", "sha256_many",
 # pixtral-12b prefills PREFILL_PROMPTS x (256 patches + PIXTRAL_TEXT
 # tokens), and its float32 check keeps PIXTRAL_F32_LAYERS of 40 layers
 PHASE10_NEW = 16
+# xlstm-350m cut to XLSTM_LAYERS of its 24 layers (6 mLSTM/sLSTM pairs,
+# a 1.062 GB image in place of 1.711 GB) so that the script stays well
+# inside its time limit
+XLSTM_LAYERS = 12
 WHISPER_TARGET = 448
 PIXTRAL_TEXT = 256
 PIXTRAL_F32_LAYERS = 4
@@ -461,7 +511,7 @@ PHASE10_ARCHS = ("xlstm-350m", "whisper-base", "pixtral-12b")
 # phase 5: the storm's workers (worker STORM_WORKERS idles until the
 # poisoned-copy restore). Every worker asks for the image's chunks in
 # the same order, so the first to probe leads nearly every flight (on
-# an H100 one worker led all 2762 of this image's). The peer that
+# an H100 one worker led all 2762 of a 32-layer image's). The peer that
 # crashes is therefore the first worker to have served
 # CRASH_AFTER_TRANSFERS transfers while leading at most 1% of the
 # flights: a tree or holder peer, not the leader, whose crash would
@@ -471,7 +521,7 @@ PHASE10_ARCHS = ("xlstm-350m", "whisper-base", "pixtral-12b")
 # only the leader serves the tree).
 STORM_WORKERS = 4
 STORM_FANOUT = 2
-CRASH_AFTER_TRANSFERS = 200
+CRASH_AFTER_TRANSFERS = 100
 CRASH_MAX_LED_SHARE = 0.01
 ORIGIN_ERROR_P = 0.02
 STORM_TIMEOUT_S = 300
@@ -481,10 +531,11 @@ PEER_COUNTERS = ("peer.transfers", "peer.direct_hits", "peer.tree_hits",
                  "peer.registered_chunks", "read.peer_hits",
                  "read.peer_fallthroughs", "peer.tree_repairs",
                  "peer.abandoned_leases")
-# phase 6: B is A with these rows (the last two of 32 layers) of every
-# g0/s0/* tensor redrawn; the reader's gate holds its GETs from this one on
-FINE_TUNED_ROWS = slice(30, 32)
-GATE_AT_GET = 1000
+# phase 6: B is A with these rows (the last two of CUT_LAYERS layers) of
+# every g0/s0/* tensor redrawn; the reader's gate holds its GETs from this
+# one on (about a third of B's chunks)
+FINE_TUNED_ROWS = slice(CUT_LAYERS - 2, CUT_LAYERS)
+GATE_AT_GET = 350
 GATE_TIMEOUT_S = 300
 RESILIENCE_COUNTERS = ("retry.attempts", "retry.retries", "retry.backoff_s",
                        "retry.giveups", "retry.budget_exhausted",
@@ -500,18 +551,39 @@ RESILIENCE_COUNTERS = ("retry.attempts", "retry.retries", "retry.backoff_s",
 # world-1 NCCL (1, 1) mesh; its losses must equal phase 9's first steps
 # within TRAIN_LOSS_TOL relative. (b) The roofline of its first step
 # counted on the card must equal a fake-tensor trace of the same cell
-# exactly, and model_flops must be SMOLLM_TRAIN_FLOPS (6 x 314,635,200
+# exactly, and model_flops must be SMOLLM_TRAIN_FLOPS (6 x 78,659,520
 # active parameters x 4096 tokens). (c) Dry runs on the fake 16 x 16
 # process group, each in its own process, started before phase 10 at
 # low priority (they need the CPU only): the SmolLM sweep's three cells
 # and kimi-k2 x train_4k under each of KIMI_VARIANTS, every record of
 # DRYRUN_CHIPS ranks; moe_a2a must exchange all-to-all bytes.
 SHARD_STEPS = 3
-SMOLLM_TRAIN_FLOPS = 7.732474675200e12
+SMOLLM_TRAIN_FLOPS = 1.933136363520e12
 KIMI_VARIANTS = ("baseline", "moe_a2a")
 DRYRUN_CHIPS = 256
 DRYRUN_TIMEOUT_S = 420
 DRYRUN_NICE = 10
+
+
+# phase 12: the port's four examples through their main(argv) at the
+# sizes they run by default: quickstart and serve_finetunes on
+# SmolLM-360M at full width (one draw of its weights from --seed),
+# serve_finetunes' replicas in float32 so each restored tree can be
+# hashed from the model, coldstart_drill at 24 functions x 300
+# invocations a phase, train_lm's ~100M config for EXAMPLE_TRAIN_STEPS
+# steps (the fewest that checkpoint twice and crash after the first:
+# its loss cannot fall in any number of steps, below). Post-recovery's
+# origin fraction must be within DRILL_RECOVERY_FACTOR x steady's plus
+# DRILL_RECOVERY_SLACK. The synthetic pipeline's labels follow the
+# model's inputs only at position 0 (``data.synthetic.global_batch``
+# plants ``31 t + U{0..6}`` from the tokens before they are replaced,
+# as the JAX package's does), so every train_lm loss must stay within
+# LOSS_CHANCE_TOL of ln(vocab), and the JAX example's LEARNING verdict
+# (last loss below the first logged by 0.2) is printed, not required.
+EXAMPLE_TRAIN_STEPS = 100
+DRILL_RECOVERY_FACTOR = 1.5
+DRILL_RECOVERY_SLACK = 0.01
+LOSS_CHANCE_TOL = 0.3
 
 
 class SmokeFailure(RuntimeError):
@@ -1166,8 +1238,73 @@ def phase_main_path(seed: int, kernels, tmp: Path) -> tuple:
     ctx = {"store": store, "blob": blob, "key": key, "want": want,
            "unique_chunks": st.unique_chunks, "prompts": prompts,
            "tokens": [r.out for r in reqs], "flat": flat,
-           "sim": out["sim"]}
+           "sim": out["sim"], "cfg": cfg}
     return out, ctx
+
+
+def cut_context(kernels, ctx: dict) -> dict:
+    """Phases 4-6's image: phase 3's tree cut to its first CUT_LAYERS
+    layers (every ``g0/*`` stack sliced; full width), published into
+    phase 3's store under its key. A restore through a fresh service
+    (empty L1) must be byte-identical to the cut tree; its fused launches
+    are one restore's. A ``ServeEngine`` over the cut weights loaded
+    directly gives the greedy tokens of phase 3's prompts that phases 4-6
+    hold their servers to. Returns phase 3's context with these in place
+    of its image's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.manifest import ZERO_CHUNK, open_manifest
+    from repro_torch.core.service import ImageService, ServiceConfig
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(ctx["cfg"], num_layers=CUT_LAYERS)
+    flat = {k: (v[:CUT_LAYERS] if k.startswith("g0/") else v)
+            for k, v in ctx["flat"].items()}
+    want = tree_digests(flat)
+    svc = ImageService(ctx["store"], ServiceConfig(
+        device="cuda", root="r0", max_batch_bytes=TILE))
+    blob, st = svc.publish(flat, tenant="smoke", tenant_key=ctx["key"],
+                           image_id=f"cut-{CUT_LAYERS}")
+    svc.close()
+    # most of its chunks are phase 3's (the same bytes at the same
+    # offsets), so the store held them already: count its distinct ones
+    distinct = len({c.name for c in open_manifest(blob, ctx["key"]).chunks}
+                   - {ZERO_CHUNK})
+    svc = ImageService(ctx["store"], ServiceConfig(
+        device="cuda", root="r0", max_batch_bytes=TILE))
+    f0 = kernels.LAUNCHES["fused_verify_decrypt"]
+    handle = svc.open(blob, ctx["key"])
+    got = tree_digests(handle.restore_tree())
+    torch.cuda.synchronize()
+    fused = kernels.LAUNCHES["fused_verify_decrypt"] - f0
+    lb = handle.reader.last_batch
+    # Fig. 11 from the origin for this image (phase 4 sets the L2 beside it)
+    sim = {k: lb[k] for k in ("sim_serial_s", "sim_pipelined_s")}
+    svc.close()
+    check(got == want, "the cut image's restore differs from the cut tree")
+    ref = ServeEngine(DecoderLM(cfg, device="cuda").load_flat(flat),
+                      max_batch=4, max_len=128)
+    reqs = [Request(i, prompt=p, max_new=16)
+            for i, p in enumerate(ctx["prompts"])]
+    for r in reqs:
+        ref.submit(r)
+    ref.run_until_drained()
+    del ref
+    out = {**ctx, "cfg": cfg, "flat": flat, "want": want, "blob": blob,
+           "unique_chunks": distinct,
+           "tokens": [r.out for r in reqs], "fused_per_restore": fused,
+           "sim": sim}
+    log(f"cut image: {cfg.name} cut to {CUT_LAYERS} of "
+        f"{ctx['cfg'].num_layers} layers, {st.bytes_total} B in "
+        f"{st.total_chunks} chunks ({distinct} distinct, {st.unique_chunks} "
+        f"not already in the store), a restore byte-identical in {fused} "
+        f"fused launches; "
+        f"{time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def check_sim_origin(handle, cs: dict) -> dict:
@@ -1261,7 +1398,6 @@ def phase_l2_path(seed: int, kernels, ctx: dict) -> tuple:
     width))."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core.cache.distributed import FaultPlan
     from repro_torch.core.service import ImageService, ReadPolicy, \
         ServiceConfig
@@ -1290,7 +1426,7 @@ def phase_l2_path(seed: int, kernels, ctx: dict) -> tuple:
     fills = ha.counters.get("read.origin_fetches") - before
     out["fill_origin_fetches"] = fills
     out["fill_parity_launches"] = kernels.LAUNCHES["parity"]
-    check(got == ctx["want"], "worker A's restore differs from phase 3's")
+    check(got == ctx["want"], "worker A's restore differs from the cut tree")
     check(fills >= unique, f"worker A fetched {fills} chunks from the "
           f"origin, fewer than the {unique} distinct ones")
     check(kernels.LAUNCHES["parity"] == fills,
@@ -1313,7 +1449,7 @@ def phase_l2_path(seed: int, kernels, ctx: dict) -> tuple:
     a.l2.coder.matmul_fn = recording
 
     # worker B: empty L1, A's L2 with cache-000 crashed, staged cold start
-    cfg = get_config("smollm-360m")
+    cfg = ctx["cfg"]
     b = ImageService(store, ServiceConfig(device="cuda", root="r0",
                                           max_batch_bytes=TILE), l2=a.l2)
     model = DecoderLM(cfg, device="cuda")
@@ -1343,7 +1479,7 @@ def phase_l2_path(seed: int, kernels, ctx: dict) -> tuple:
           f"worker B had {cs['l2_hits']} L2 hits for {unique} chunks")
     check(out["b_gf256_launches"] >= 1, "the GF(256) kernel did not run")
     check(tree_digests(loaded) == ctx["want"],
-          "worker B's restored tree differs from phase 3's")
+          "worker B's restored tree differs from the cut tree")
     del loaded
     reqs = [Request(i, prompt=p, max_new=16)
             for i, p in enumerate(ctx["prompts"])]
@@ -1351,8 +1487,8 @@ def phase_l2_path(seed: int, kernels, ctx: dict) -> tuple:
         engine.submit(r)
     engine.run_until_drained()
     check([r.out for r in reqs] == ctx["tokens"],
-          "worker B's tokens differ from phase 3's")
-    log("L2 serve: 4 requests, greedy tokens equal phase 3's")
+          "worker B's tokens differ from the cut weights'")
+    log("L2 serve: 4 requests, greedy tokens equal the cut weights'")
     origin = ctx["sim"]
     out["fig11"] = {
         "origin_sim_pipelined_s": origin["sim_pipelined_s"],
@@ -1375,7 +1511,7 @@ def phase_l2_path(seed: int, kernels, ctx: dict) -> tuple:
     out["c_restore_s"] = time.perf_counter() - t0
     out["c_origin_fetches"] = hc.counters.get("read.origin_fetches") - before
     out["c_l2_hits"] = hc.reader.last_batch["l2_hits"]
-    check(got == ctx["want"], "the streamed L2 restore differs from phase 3's")
+    check(got == ctx["want"], "the streamed L2 restore differs from the cut tree")
     log(f"L2 streamed restore: {out['c_restore_s']:.2f} s, "
         f"{out['c_l2_hits']} L2 hits, {out['c_origin_fetches']:.0f} origin "
         "GETs, byte-identical")
@@ -1392,7 +1528,7 @@ def phase_l2_path(seed: int, kernels, ctx: dict) -> tuple:
     out["d_restore_s"] = time.perf_counter() - t0
     out["d_origin_fetches"] = hd.counters.get("read.origin_fetches") - before
     check(got == ctx["want"], "the restore after flush() differs from "
-          "phase 3's")
+          "the cut tree")
     check(out["d_origin_fetches"] == unique,
           f"after flush() a restore made {out['d_origin_fetches']:.0f} "
           f"origin GETs for {unique} distinct chunks")
@@ -1530,7 +1666,6 @@ def phase_peer_storm(seed: int, kernels, ctx: dict,
 
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core.cache.distributed import FaultPlan
     from repro_torch.core.faults import FaultyStore, OriginFaultPlan
     from repro_torch.core.manifest import ZERO_CHUNK, open_manifest
@@ -1596,7 +1731,7 @@ def phase_peer_storm(seed: int, kernels, ctx: dict,
         c.probe_chunks = counted_probe(c)
     svcs = [ImageService(origin, cfg, peer=clients[i])
             for i in range(STORM_WORKERS)]
-    model = DecoderLM(get_config("smollm-360m"), device="cuda")
+    model = DecoderLM(ctx["cfg"], device="cuda")
     digests, times, splits, errors, engine = {}, {}, {}, [], {}
     load_flat = model.load_flat
 
@@ -1669,7 +1804,7 @@ def phase_peer_storm(seed: int, kernels, ctx: dict,
     check(not errors, f"storm workers failed: {errors}")
     for i in range(STORM_WORKERS):
         check(digests.get(i) == ctx["want"],
-              f"storm worker {i}'s tree differs from phase 3's")
+              f"storm worker {i}'s tree differs from the cut tree")
     check(unique <= d["read.origin_fetches"] <= 2 * unique,
           f"the storm made {d['read.origin_fetches']:.0f} origin GETs for "
           f"{unique} distinct chunks (allowed {unique}..{2 * unique})")
@@ -1690,9 +1825,9 @@ def phase_peer_storm(seed: int, kernels, ctx: dict,
         engine[0].submit(r)
     engine[0].run_until_drained()
     check([r.out for r in reqs] == ctx["tokens"],
-          "storm worker 0's tokens differ from phase 3's")
+          "storm worker 0's tokens differ from the cut weights'")
     log("peer storm: 4 trees byte-identical, worker 0's 4 requests give "
-        "phase 3's greedy tokens")
+        "the cut weights' greedy tokens")
     del engine, model
     for svc in svcs:
         svc.close()
@@ -1734,7 +1869,7 @@ def phase_peer_storm(seed: int, kernels, ctx: dict,
         f"flagged {flagged}")
     check(flagged == [[name]],
           f"the fused decode flagged {flagged}, not [[{name[:12]}...]]")
-    check(got == ctx["want"], "worker 4's tree differs from phase 3's")
+    check(got == ctx["want"], "worker 4's tree differs from the cut tree")
     check(d4["retry.integrity_refetches"] == 1,
           f"{d4['retry.integrity_refetches']:.0f} integrity refetch rounds")
     check(d4["read.origin_fetches"] == 1,
@@ -1834,7 +1969,6 @@ def phase_gc_roll(seed: int, kernels, ctx: dict, work: Path) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core.blockdev import CowBlockDevice
     from repro_torch.core.gc import GenerationalGC
     from repro_torch.core.layout import CHUNK_SIZE
@@ -1848,7 +1982,7 @@ def phase_gc_roll(seed: int, kernels, ctx: dict, work: Path) -> dict:
     from repro_torch.serve.engine import Request, ServeEngine
 
     t_phase = time.perf_counter()
-    cfg = get_config("smollm-360m")
+    cfg = ctx["cfg"]
     key = ctx["key"]
     flat_a = ctx["flat"]
     flat_b = fine_tune(flat_a, seed + 1)
@@ -2076,12 +2210,15 @@ def _launch(kernels, argv: list) -> tuple:
     return res, dict(kernels.LAUNCHES), time.perf_counter() - t0
 
 
-def _serve_direct(model, requests: int, max_new: int) -> list:
-    """The launcher's requests through a ServeEngine over `model`."""
+def _serve_direct(model, requests: int, max_new: int, *, prompts=None,
+                  max_batch: int = 4, max_len: int = 64) -> list:
+    """The launcher's requests (or `prompts`) through a ServeEngine over
+    `model`."""
     from repro_torch.serve.engine import Request, ServeEngine
-    eng = ServeEngine(model, max_batch=4, max_len=64)
-    reqs = [Request(i, prompt=[1 + i, 2, 3], max_new=max_new)
-            for i in range(requests)]
+    eng = ServeEngine(model, max_batch=max_batch, max_len=max_len)
+    prompts = prompts or [[1 + i, 2, 3] for i in range(requests)]
+    reqs = [Request(i, prompt=list(p), max_new=max_new)
+            for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
     eng.run_until_drained()
@@ -2103,6 +2240,7 @@ def phase_launcher(seed: int, kernels, ctx: dict, work: Path) -> dict:
     from repro_torch.models import DecoderLM, RunFlags, init_flat
     from repro_torch.models import blocks
     from repro_torch.models.attention import flash_attn_plain
+    from repro_torch.models.lm import init_device
 
     t_phase = time.perf_counter()
     out = {}
@@ -2226,9 +2364,9 @@ def phase_launcher(seed: int, kernels, ctx: dict, work: Path) -> dict:
         f"{full.num_layers} layers, float32, one prompt of "
         f"{STARCODER_PROMPT} tokens")
     t0 = time.perf_counter()
-    sc_flat = init_flat(cut, seed + 8)
-    sc = DecoderLM(cut, RunFlags(dtype="float32")).load_flat(sc_flat)
-    del sc_flat
+    sc = DecoderLM(cut, RunFlags(dtype="float32")).load_flat(
+        init_device(cut, seed + 8, dtype="float32"))
+    torch.cuda.synchronize()
     weights_s = time.perf_counter() - t0
     errs = []
     card_flash = blocks.flash_attn
@@ -2738,10 +2876,13 @@ def image_chunk_names(store, root: str, image_id: str) -> set:
 
 
 def phase_train_resume(seed: int, kernels, work: Path) -> dict:
-    """9a: SmolLM-360M at full width trains, checkpoints through the
+    """9a: SmolLM-360M at full width (TRAIN_LAYERS layers) trains,
+    checkpoints through the
     service, crashes and resumes byte-identical; retention and a sweep;
     elastic recovery of one worker's shard. 9b: the reduced launcher
     and its --resume."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -2755,7 +2896,8 @@ def phase_train_resume(seed: int, kernels, work: Path) -> dict:
     from repro_torch.train.loop import LoopConfig, Trainer, WorkerFailure
     from repro_torch.train.optimizer import OptConfig
 
-    cfg = get_config("smollm-360m")
+    cfg = dataclasses.replace(get_config("smollm-360m"),
+                              num_layers=TRAIN_LAYERS)
     _policy, flags, opt = get_variant("baseline", cfg, SHAPES["train_4k"])
     loop = LoopConfig(steps=TRAIN_CKPT_EVERY, batch=TRAIN_BATCH,
                       seq=TRAIN_SEQ, ckpt_every=TRAIN_CKPT_EVERY,
@@ -3123,14 +3265,18 @@ def close_states(got: dict, want: dict, tol: float) -> dict:
 
 
 def phase_xlstm(seed: int, kernels, work: Path, card: str) -> dict:
-    """10a: xlstm-350m at published width and full depth (module doc)."""
+    """10a: xlstm-350m at published width, XLSTM_LAYERS of its 24
+    layers (module doc)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import DecoderLM, RunFlags, init_flat
 
-    cfg = get_config("xlstm-350m")
+    cfg = dataclasses.replace(get_config("xlstm-350m"),
+                              num_layers=XLSTM_LAYERS)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3485,6 +3631,8 @@ def closed_form_flops(cfg, shape, counts: dict) -> float:
 def phase_sharding(seed: int, train: dict, dryruns: list, work: Path,
                    card: str) -> dict:
     """11: the sharded path on the card (a, b) and the dry runs (c)."""
+    import dataclasses
+
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3515,7 +3663,8 @@ def phase_sharding(seed: int, train: dict, dryruns: list, work: Path,
     from repro_torch.train.step import init_train_state, make_train_step
 
     out = {}
-    cfg = get_config("smollm-360m")
+    cfg = dataclasses.replace(get_config("smollm-360m"),
+                              num_layers=TRAIN_LAYERS)
     policy, flags, opt = get_variant("baseline", cfg, SHAPES["train_4k"])
     opt_cfg = OptConfig(**opt)
     shape = ShapeConfig("train_8x512", TRAIN_SEQ, TRAIN_BATCH, "train")
@@ -3667,6 +3816,295 @@ def phase_sharding(seed: int, train: dict, dryruns: list, work: Path,
     return out
 
 
+# ------------------------------------------------------------- phase 12
+
+def chunk_map(layout, flat: dict, indices) -> dict:
+    """{chunk index: hashlib SHA-256 of its bytes in `flat`'s image, or
+    None for an all-zero chunk (never stored, never fetched)}."""
+    cs = layout.chunk_size
+    out = {}
+    for i in indices:
+        raw = image_bytes(layout, flat, i * cs, cs)
+        out[i] = None if raw.count(0) == len(raw) else \
+            hashlib.sha256(raw).digest()
+    return out
+
+
+def tensor_chunks(layout, name: str, nbytes: int | None = None) -> range:
+    """The chunk indices that the first `nbytes` (default all) of tensor
+    `name` span."""
+    t = layout.tensors[name]
+    n = t.nbytes if nbytes is None else nbytes
+    cs = layout.chunk_size
+    return range(t.offset // cs, (t.offset + n - 1) // cs + 1)
+
+
+def _example(kernels, main, argv: list, **kw) -> tuple:
+    """One in-process run of an example's main: (its result, the kernel
+    launches it made, its wall seconds)."""
+    import torch
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = main(argv, **kw)
+    torch.cuda.synchronize()
+    return res, dict(kernels.LAUNCHES), time.perf_counter() - t0
+
+
+def example_quickstart(kernels, flat: dict, layout, base_map: dict,
+                       work: Path, card: str) -> dict:
+    """12a: ``repro_torch.examples.quickstart`` at full width."""
+    import numpy as np
+
+    from repro_torch.examples import quickstart
+
+    res, launches, wall = _example(
+        kernels, quickstart.main, ["--store", str(work / "quickstart")],
+        weights=flat)
+    shutil.rmtree(work / "quickstart", ignore_errors=True)
+    name = next(k for k in sorted(flat) if k.startswith("g0"))
+    check(res["tensor"] == name, f"quickstart fine-tuned {res['tensor']}, "
+          f"not {name}")
+    ft_t = flat[name] + np.float32(0.01)
+    want = quickstart.sha(ft_t)
+    rows = flat["embed"].shape[0] // 2
+    want_half = quickstart.sha(flat["embed"][:rows])
+    check(res["tensor_ok"] and res["tensor_sha256"] == want,
+          "quickstart's restore of the fine-tuned tensor differs")
+    check(res["half_ok"] and res["half_sha256"] == want_half,
+          "quickstart's half shard of embed differs")
+    check(res["restore_after_gc_ok"]
+          and res["restore_after_gc_sha256"] == want,
+          "quickstart's restore after the roll differs")
+    half_chunks = tensor_chunks(layout, "embed",
+                                rows * flat["embed"][0].nbytes)
+    check(res["chunks_touched"] == len(half_chunks),
+          f"quickstart touched {res['chunks_touched']} chunks for half of "
+          f"embed; the layout says {len(half_chunks)}")
+    ft = {**flat, name: ft_t}
+    ft_map = {**base_map, **chunk_map(layout, ft,
+                                      tensor_chunks(layout, name))}
+    base_set = {d for d in base_map.values() if d}
+    ft_set = {d for d in ft_map.values() if d}
+    check(res["base"]["unique_chunks"] == len(base_set),
+          f"base image stored {res['base']['unique_chunks']} chunks, "
+          f"hashlib counts {len(base_set)} distinct")
+    check(res["fine_tune"]["unique_chunks"] == len(ft_set - base_set),
+          f"fine-tune stored {res['fine_tune']['unique_chunks']} chunks; "
+          f"{len(ft_set - base_set)} of its chunks are not in the base")
+    check(res["migrated_manifests"] == 2 and res["deleted_old_root"]
+          and res["migrated_chunks"] == len(base_set | ft_set),
+          f"roll migrated {res['migrated_manifests']} manifests, "
+          f"{res['migrated_chunks']} chunks (want 2, "
+          f"{len(base_set | ft_set)}), deleted {res['deleted_old_root']}")
+    out = {k: res[k] for k in ("base", "fine_tune", "tensor",
+                               "chunks_touched", "num_chunks",
+                               "migrated_manifests", "migrated_chunks")}
+    out.update(wall_s=wall, launches=launches)
+    log(f"quickstart: {json.dumps(out)} {card}")
+    log(f"quickstart: restores and half shard byte-identical, {len(half_chunks)}"
+        f" chunks for half of embed, {len(ft_set - base_set)} new chunks of "
+        f"the fine-tune; {wall:.2f} s {card}")
+    return out
+
+
+def bits(t):
+    """A tensor's bytes as a flat uint8 tensor on its device."""
+    import torch
+    return t.contiguous().view(torch.uint8).reshape(-1)
+
+
+def same_bits(got: dict, want: dict) -> list:
+    """The paths whose tensors differ in shape, dtype or any bit
+    (compared on the card), or lie in only one of the two trees."""
+    import torch
+    return sorted(k for k in got.keys() | want.keys()
+                  if k not in got or k not in want
+                  or got[k].shape != want[k].shape
+                  or got[k].dtype != want[k].dtype
+                  or not torch.equal(bits(got[k]), bits(want[k])))
+
+
+def example_serve_finetunes(kernels, cfg, flat: dict, layout,
+                            base_map: dict, work: Path, card: str) -> dict:
+    """12b: ``repro_torch.examples.serve_finetunes``, ten float32
+    replicas of full-width SmolLM-360M, each checked against its
+    fine-tune as it serves: every tensor bit-equal on the card."""
+    import torch
+
+    from repro_torch.core.layout import canonical_paths
+    from repro_torch.examples import serve_finetunes
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.lm import RunFlags
+
+    seen: set = set()
+    new_chunks, direct = [], []
+    ref = DecoderLM(cfg, RunFlags(dtype="float32"), device="cuda")
+    names = sorted(flat)
+    base = {k: torch.from_numpy(v).to("cuda") for k, v in flat.items()}
+
+    def on_replica(i, engine, stats, tree):
+        victim = names[i % len(names)]
+        m = {**base_map, **chunk_map(layout, tree,
+                                     tensor_chunks(layout, victim))}
+        digests = {d for d in m.values() if d}
+        new_chunks.append(len(digests - seen))
+        seen.update(digests)
+        want = {**base, victim: torch.from_numpy(tree[victim]).to("cuda")}
+        bad = same_bits(dict(canonical_paths(engine.model.params)), want)
+        check(not bad, f"replica {i}'s restored tree differs from its "
+              f"fine-tune ({bad})")
+        ref.load_flat(tree)
+        direct.append(_serve_direct(
+            ref, 1, serve_finetunes.MAX_NEW,
+            prompts=[serve_finetunes.PROMPT], max_batch=2, max_len=32)[0])
+
+    res, launches, wall = _example(
+        kernels, serve_finetunes.main,
+        ["--dtype", "float32", "--store", str(work / "fleet")],
+        weights=flat, on_replica=on_replica)
+    shutil.rmtree(work / "fleet", ignore_errors=True)
+    reps = res["replicas"]
+    check(len(reps) == 10, f"{len(reps)} replicas")
+    for i, r in enumerate(reps):
+        check(r["tokens"] == direct[i], f"replica {i}'s tokens {r['tokens']}"
+              f" differ from the directly loaded fine-tune's {direct[i]}")
+        check(r["origin_fetches"] == new_chunks[i],
+              f"replica {i} made {r['origin_fetches']} origin GETs; "
+              f"{new_chunks[i]} of its chunks were in no earlier image")
+    fleet = res["fleet"]
+    check(fleet["origin_fetches"] == len(seen),
+          f"the fleet made {fleet['origin_fetches']} origin GETs for "
+          f"{len(seen)} distinct chunks across the ten images")
+    after = sum(r["origin_fetches"] for r in
+                reps[serve_finetunes.FAIL_BEFORE:])
+    out = {"fine_tunes": res["fine_tunes"], "replicas": reps,
+           "fleet": fleet, "distinct_chunks": len(seen),
+           "origin_gets_after_failure": after,
+           "new_chunks_after_failure": sum(
+               new_chunks[serve_finetunes.FAIL_BEFORE:]),
+           "wall_s": wall, "launches": launches}
+    log(f"serve_finetunes: {json.dumps(out)} {card}")
+    log(f"serve_finetunes: 10 replicas bit-equal to their fine-tunes "
+        f"(every tensor, on the card), tokens equal the directly loaded "
+        f"fine-tunes'; fleet origin GETs {fleet['origin_fetches']:.0f} = "
+        f"{len(seen)} distinct chunks, {after:.0f} of them after "
+        f"{fleet['failed_node']} failed (each a chunk no earlier image "
+        f"held); {wall:.2f} s {card}")
+    return out
+
+
+def example_coldstart_drill(kernels, work: Path, card: str) -> dict:
+    """12c: ``repro_torch.examples.coldstart_drill`` at its defaults."""
+    from repro_torch.examples import coldstart_drill
+
+    res, launches, wall = _example(
+        kernels, coldstart_drill.main, ["--store", str(work / "drill")])
+    shutil.rmtree(work / "drill", ignore_errors=True)
+    ph = res["phases"]
+    for name, p in ph.items():
+        check(p["rejected"] == 0, f"drill {name}: {p['rejected']} starts "
+              "rejected by a serial trace")
+    post, cold, steady = (ph[k]["origin_fraction"] for k in (
+        "post-recovery", "cold restart", "steady"))
+    check(post <= cold, f"drill: post-recovery origin fraction {post} above "
+          f"the cold restart's {cold}")
+    check(post <= DRILL_RECOVERY_FACTOR * steady + DRILL_RECOVERY_SLACK,
+          f"drill: post-recovery origin fraction {post}, steady {steady}")
+    out = {"phases": ph, "l1_bytes": res["l1_bytes"], "wall_s": wall,
+           "launches": launches}
+    for name, p in ph.items():
+        log(f"drill {name}: p50 {p['p50_ms']:.4f} ms, p99 "
+            f"{p['p99_ms']:.4f} ms (simulated), L1 hit rate "
+            f"{p['l1_hit_rate']:.4f}, origin fraction "
+            f"{p['origin_fraction']:.6f}, rejected {p['rejected']} {card}")
+    log(f"drill: {wall:.2f} s, launches {launches} {card}")
+    return out
+
+
+def example_train_lm(kernels, work: Path, card: str) -> dict:
+    """12d: ``repro_torch.examples.train_lm`` for EXAMPLE_TRAIN_STEPS
+    steps; the resumed trainer's first loss against an uninterrupted
+    trainer run to the same step."""
+    from repro_torch.examples import train_lm
+    from repro_torch.train.loop import Trainer
+
+    res, launches, wall = _example(
+        kernels, train_lm.main, ["--steps", str(EXAMPLE_TRAIN_STEPS),
+                                 "--store", str(work / "train")])
+    shutil.rmtree(work / "train", ignore_errors=True)
+    cfg, loop, _ = train_lm.config(False, EXAMPLE_TRAIN_STEPS)
+    saved_a = [c["step"] for c in res["checkpoints"]
+               if c["step"] <= res["crash_step"]]
+    check(saved_a and res["resumed_step"] == max(saved_a),
+          f"resumed at step {res['resumed_step']}; A's checkpoints {saved_a}")
+    t0 = time.perf_counter()
+    ref = Trainer(cfg, loop, device="cuda").init()
+    ref.run(res["resumed_step"] + 1)
+    ref_s = time.perf_counter() - t0
+    want = ref.history[-1]["loss"]
+    first_b = res["losses_b"][0]
+    check(first_b[0] == res["resumed_step"] + 1 and first_b[1] == want,
+          f"resumed first loss {first_b} differs from the uninterrupted "
+          f"trainer's {want!r} at step {res['resumed_step'] + 1}")
+    chance = math.log(cfg.vocab_size)
+    far = [(st, x) for st, x in res["losses_a"] + res["losses_b"]
+           if not abs(x - chance) <= LOSS_CHANCE_TOL]
+    check(not far, f"losses off the chance level ln(V) = {chance:.4f} by "
+          f"more than {LOSS_CHANCE_TOL}: {far[:5]}")
+    steps = res["step_s_a"][1:] + res["step_s_b"][1:]
+    out = {k: res[k] for k in ("config", "steps", "param_counts",
+                               "crash_step", "resumed_step", "resume_s",
+                               "first_loss", "last_loss", "checkpoints",
+                               "s_per_step_a", "s_per_step_b")}
+    out.update(step_ms_median=1e3 * float(sorted(steps)[len(steps) // 2]),
+               learning=res["learning"], chance_loss=chance,
+               resumed_first_loss=first_b[1], uninterrupted_loss=want,
+               uninterrupted_s=ref_s, wall_s=wall, launches=launches,
+               losses_a=res["losses_a"], losses_b=res["losses_b"])
+    log(f"train_lm: {json.dumps({k: v for k, v in out.items() if not k.startswith('losses')})} {card}")
+    log(f"train_lm: {res['param_counts']['total_with_embed'] / 1e6:.1f} M "
+        f"params, crashed at {res['crash_step']}, resumed at "
+        f"{res['resumed_step']} with first loss {first_b[1]!r} = the "
+        f"uninterrupted trainer's (bitwise); loss {res['first_loss']:.4f} "
+        f"-> {res['last_loss']:.4f} (ln V {chance:.4f}; "
+        f"{'LEARNING' if res['learning'] else 'not learning'}); "
+        f"{out['step_ms_median']:.2f} ms a step (median); {wall:.2f} s "
+        f"{card}")
+    return out
+
+
+def phase_examples(seed: int, kernels, work: Path, card: str) -> dict:
+    """12: the port's four examples through their ``main``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.layout import build_layout
+    from repro_torch.models import init_flat
+
+    t0 = time.perf_counter()
+    work.mkdir(parents=True, exist_ok=True)
+    cfg = get_config("smollm-360m")
+    flat = init_flat(cfg, seed)
+    layout = build_layout(flat, KIB512)
+    base_map = chunk_map(layout, flat, range(layout.num_chunks))
+    out = {"weights_and_hashes_s": time.perf_counter() - t0}
+    out["quickstart"] = example_quickstart(kernels, flat, layout, base_map,
+                                           work, card)
+    out["serve_finetunes"] = example_serve_finetunes(
+        kernels, cfg, flat, layout, base_map, work, card)
+    del flat, base_map
+    torch.cuda.empty_cache()
+    out["coldstart_drill"] = example_coldstart_drill(kernels, work, card)
+    out["train_lm"] = example_train_lm(kernels, work, card)
+    out["launches"] = {k: sum(out[e]["launches"][k] for e in (
+        "quickstart", "serve_finetunes", "coldstart_drill", "train_lm"))
+        for k in out["quickstart"]["launches"]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 12: {out['phase_s']:.2f} s, launches {out['launches']} "
+        f"{card}")
+    return out
+
+
 def rng_prompt(seed: int, vocab: int) -> list:
     import numpy as np
     return [int(t) for t in
@@ -3703,47 +4141,68 @@ def main() -> int:
     work9 = ROOT / "build" / f"smoke-train-{args.seed}"
     work10 = ROOT / "build" / f"smoke-families-{args.seed}"
     work11 = ROOT / "build" / f"smoke-dryrun-{args.seed}"
-    for d in (tmp, work, work7, work8, work9, work10, work11):
+    work12 = ROOT / "build" / f"smoke-examples-{args.seed}"
+    for d in (tmp, work, work7, work8, work9, work10, work11, work12):
         shutil.rmtree(d, ignore_errors=True)
     dryruns = []
+    ended = {}
+
+    def mark(phase: str) -> None:
+        ended[phase] = time.perf_counter() - t_all
+        log(f"phase {phase} ended at {ended[phase]:.2f} s")
     try:
         smi_line = phase_toolchain(kernels)
+        mark("1")
         rng = np.random.default_rng(args.seed)
         rows = phase_kernels(rng, 256, KIB512)
         phase_engine_cases(rng)
         phase_aes_cases(rng)
         erasure_rows = phase_erasure_kernels(rng, kernels)
         rows["parity"] = erasure_rows["parity"]
+        mark("2")
         main_path, ctx = phase_main_path(args.seed, kernels, tmp)
-        l2_path, largest = phase_l2_path(args.seed, kernels, ctx)
+        mark("3")
+        cut = cut_context(kernels, ctx)
+        mark("3-cut")
+        l2_path, largest = phase_l2_path(args.seed, kernels, cut)
         rows["gf256"] = time_gf256(rng, *largest,
                                    erasure_rows["gf256_check_err"])
-        # phase 3's launches are those of two restores
-        storm = phase_peer_storm(
-            args.seed, kernels, ctx,
-            main_path["launches"]["fused_verify_decrypt"] // 2)
+        mark("4")
+        storm = phase_peer_storm(args.seed, kernels, cut,
+                                 cut["fused_per_restore"])
+        mark("5")
         shutil.rmtree(tmp, ignore_errors=True)  # phase 6 has its own store
-        gc_roll = phase_gc_roll(args.seed, kernels, ctx, work)
+        gc_roll = phase_gc_roll(args.seed, kernels, cut, work)
         shutil.rmtree(work, ignore_errors=True)
+        mark("6")
+        del cut
         launcher = phase_launcher(args.seed, kernels, ctx, work7)
         shutil.rmtree(work7, ignore_errors=True)
+        mark("7")
         del ctx
         families = phase_families(args.seed)
         ep = phase_ep_restore(args.seed, kernels, work8)
         shutil.rmtree(work8, ignore_errors=True)
+        mark("8")
         train = phase_train_resume(args.seed, kernels, work9)
         shutil.rmtree(work9, ignore_errors=True)
+        mark("9")
         card = f"[{smi_line.strip()}]"   # every phase-10 time carries it
         dryruns = start_dryruns(work11)
         fam4b = phase_families_4b(args.seed, kernels, work10, card)
+        mark("10")
         kernels.reset_launches()
         sharding = phase_sharding(args.seed, train, dryruns, work11, card)
         sharding["launches"] = dict(kernels.LAUNCHES)
+        mark("11")
+        examples = phase_examples(args.seed, kernels, work12, card)
+        shutil.rmtree(work12, ignore_errors=True)
+        mark("12")
         launches = {3: main_path["launches"], 4: l2_path["launches"],
                     5: storm["launches"], 6: gc_roll["launches"],
                     7: launcher["launches"], 8: ep["launches"],
                     9: train["launches"], 10: fam4b["launches"],
-                    11: sharding["launches"]}
+                    11: sharding["launches"], 12: examples["launches"]}
         for phase, names in PATH_KERNELS.items():
             for name in names:
                 check(launches[phase][name] > 0, f"kernel {name} was not "
@@ -3753,7 +4212,7 @@ def main() -> int:
         return 1
     finally:
         stop_dryruns(dryruns)
-        for d in (tmp, work, work7, work8, work9, work10, work11):
+        for d in (tmp, work, work7, work8, work9, work10, work11, work12):
             shutil.rmtree(d, ignore_errors=True)
     table = []
     for name, (src, replaces, phase) in TPU_KERNELS.items():
@@ -3767,7 +4226,7 @@ def main() -> int:
                       "launches_by_phase": {
                           str(p): launches[p][name]
                           for p, names in PATH_KERNELS.items()
-                          if name in names},
+                          if name in names or p == 12},
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": None})
@@ -3791,6 +4250,9 @@ def main() -> int:
                               if k != "launches"}
     summary["sharding"] = {k: v for k, v in sharding.items()
                            if k != "launches"}
+    summary["examples"] = {k: v for k, v in examples.items()
+                           if k != "launches"}
+    summary["phases_ended_at_s"] = ended
     summary["smoke_seconds"] = time.perf_counter() - t_all
     log("main path:", json.dumps(summary))
     log(json.dumps({"launches": {f"phase{p}": n

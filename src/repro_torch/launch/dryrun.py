@@ -26,10 +26,12 @@ also listed under ``"divergences"``):
   operators counted, ``compile_s`` 0.0 (nothing is compiled);
 * ``forced_replications`` counts the port's deliberate redistributions
   to ``Replicate()`` by site (``sharding.constrain.force_replicate``);
-* ``device`` is the device type of the mesh and the fake tensors:
-  "cuda" where a card is present, so the step takes the card's routes
-  (``flash_attn``'s SDPA), else "cpu" (the plain routes, and DTensor
-  gathers and chunks where it would exchange all-to-all).
+* ``device`` is the device type of the mesh and the fake tensors,
+  ``--device`` (default "cuda", resolved by ``repro_torch.resolve_device``,
+  so a machine without a card raises unless asked for "cpu"): on
+  "cuda" the step takes the card's routes (``flash_attn``'s SDPA), on
+  "cpu" the plain routes, and DTensor gathers and chunks where it would
+  exchange all-to-all.
 
 Without the fake backend the run fails; an operator that DTensor has
 no sharding rule for raises. Records land in ``results/dryrun_torch/``
@@ -37,6 +39,7 @@ no sharding rule for raises. Records land in ``results/dryrun_torch/``
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.dryrun --arch A
        --shape S [--multi-pod] [--variant V] [--no-save]
+       [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs import SHAPES, applicable_shapes, get_config
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.modelflops import model_flops, param_counts
@@ -94,10 +98,6 @@ def init_fake_world(world_size: int):
         return
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=world_size)
-
-
-def dry_device() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
 
 
 def fake_dtensor(shape, dtype, sharding, device):
@@ -193,12 +193,13 @@ def place_batch(model, batch: dict, shape, mesh, policy) -> dict:
         {k: specs[k] for k in batch}, batch, mesh, policy))
 
 
-def build_cell(arch: str, shape_name: str, mesh, variant: str = "baseline"):
+def build_cell(arch: str, shape_name: str, mesh, variant: str = "baseline",
+               device: str = "cuda"):
     """Set up one (arch x shape x mesh) cell on fake tensors of
-    ``dry_device()`` (call under a ``FakeTensorMode``). Returns (step,
-    args, meta): ``step(*args)`` runs the cell's step under its
-    policy."""
-    device = dry_device()
+    `device` (call under a ``FakeTensorMode``; a CUDA device needs a
+    card). Returns (step, args, meta): ``step(*args)`` runs the cell's
+    step under its policy."""
+    device = resolve_device(device).type
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     policy, flags, opt_over = get_variant(variant, cfg, shape)
@@ -239,17 +240,19 @@ def trace(step, args) -> tuple:
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
-             variant: str = "baseline", verbose: bool = True) -> dict:
+             variant: str = "baseline", verbose: bool = True,
+             device: str = "cuda") -> dict:
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    device = resolve_device(device).type
     init_fake_world(512 if multi_pod else 256)
-    mesh = make_production_mesh(multi_pod=multi_pod,
-                                device_type=dry_device())
+    mesh = make_production_mesh(multi_pod=multi_pod, device_type=device)
     chips = mesh.size()
     FORCED.clear()
     with FakeTensorMode(allow_non_fake_inputs=True):
         t0 = time.time()
-        step, args, meta = build_cell(arch, shape_name, mesh, variant)
+        step, args, meta = build_cell(arch, shape_name, mesh, variant,
+                                      device)
         t_lower = time.time() - t0
         t0 = time.time()
         costs, memory = trace(step, args)
@@ -271,7 +274,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "roofline": roof.to_dict(),
         "hlo_bytes": costs.ops,
         "forced_replications": dict(FORCED),
-        "device": dry_device(),
+        "device": device,
         "divergences": DIVERGENCES,
     }
     if verbose:
@@ -309,6 +312,9 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--variant", default="baseline", choices=list(VARIANTS))
     ap.add_argument("--no-save", action="store_true")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="the mesh's and the fake tensors' device (cpu: "
+                         "the plain routes)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -318,7 +324,7 @@ def main(argv=None):
               f"(full-attention arch at 500k)")
         return None
     rec = run_cell(args.arch, args.shape, multi_pod=args.multi_pod,
-                   variant=args.variant)
+                   variant=args.variant, device=args.device)
     if not args.no_save:
         path = save_record(rec)
         print(f"saved {path}")

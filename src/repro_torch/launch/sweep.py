@@ -6,7 +6,10 @@ group). Results land in results/dryrun_torch/*.json, with a
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.sweep
        [--multi-pod-only|--single-pod-only] [--variant baseline]
-       [--arch A] [--jobs N]
+       [--arch A] [--jobs N] [--device cuda|cpu]
+
+``--device`` (default ``cuda``) is passed on to every cell's dry run;
+without a card each cell raises unless it is ``cpu``.
 """
 from __future__ import annotations
 
@@ -26,14 +29,14 @@ REPO = Path(__file__).resolve().parents[3]
 
 
 def run_one(arch: str, shape: str, multi_pod: bool, variant: str,
-            force: bool = False) -> dict:
+            force: bool = False, device: str = "cuda") -> dict:
     mesh = "2x16x16" if multi_pod else "16x16"
     out = RESULTS_DIR / f"{arch}_{shape}_{mesh}_{variant}.json"
     if out.exists() and not force:
         return {"arch": arch, "shape": shape, "mesh": mesh, "cached": True,
                 "ok": True}
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-           "--shape", shape, "--variant", variant]
+           "--shape", shape, "--variant", variant, "--device", device]
     if multi_pod:
         cmd.append("--multi-pod")
     t0 = time.time()
@@ -59,6 +62,7 @@ def main(argv=None):
     ap.add_argument("--single-pod-only", action="store_true")
     ap.add_argument("--jobs", type=int, default=2)
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
     cells = []
@@ -72,7 +76,8 @@ def main(argv=None):
 
     results = []
     with ThreadPoolExecutor(max_workers=args.jobs) as ex:
-        futs = [ex.submit(run_one, a, s, mp, args.variant, args.force)
+        futs = [ex.submit(run_one, a, s, mp, args.variant, args.force,
+                          args.device)
                 for a, s, mp in cells]
         for f in futs:
             results.append(f.result())

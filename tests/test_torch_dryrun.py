@@ -30,16 +30,18 @@ def _flags(path: Path) -> set:
 
 
 def test_flags_match_the_reference():
+    """The reference's flags, and ``--device`` (ROADMAP.md §3)."""
     port = Path(__file__).resolve().parents[1] / "src/repro_torch/launch"
     for name in ("dryrun.py", "sweep.py"):
-        assert _flags(port / name) == _flags(REF / name)
+        assert _flags(port / name) == _flags(REF / name) | {"--device"}
 
 
 def test_run_one_decode_cell(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_DRYRUN_DIR", str(tmp_path))
     from repro_torch.launch import sweep
     monkeypatch.setattr(sweep, "RESULTS_DIR", tmp_path)
-    res = sweep.run_one("smollm-360m", "decode_32k", False, "baseline")
+    res = sweep.run_one("smollm-360m", "decode_32k", False, "baseline",
+                        device="cpu")
     assert res["ok"], res.get("stderr")
     rec = json.loads((tmp_path / "smollm-360m_decode_32k_16x16_baseline"
                       ".json").read_text())

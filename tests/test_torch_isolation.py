@@ -24,7 +24,8 @@ for m in mods:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
-             or m == "repro" or m.startswith("repro."))
+             or m == "repro" or m.startswith("repro.")
+             or m == "benchmarks" or m.startswith("benchmarks."))
 print(json.dumps({"modules": mods, "bad": bad}))
 """
 
@@ -65,8 +66,35 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.sharding.collectives",
               "repro_torch.launch.mesh", "repro_torch.launch.modelflops",
               "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
-              "repro_torch.launch.sweep"):
+              "repro_torch.launch.sweep", "repro_torch.examples",
+              "repro_torch.examples.quickstart",
+              "repro_torch.examples.serve_finetunes",
+              "repro_torch.examples.coldstart_drill",
+              "repro_torch.examples.train_lm"):
         assert m in res["modules"]
+
+
+def test_examples_import_no_jax_repro_or_benchmarks():
+    """The examples import inside ``main``: every import statement of
+    ``repro_torch/examples/*.py``, at any depth, names torch, numpy, the
+    standard library or the port; none names jax, the JAX package or the
+    JAX round's ``benchmarks``."""
+    import ast
+    files = sorted((SRC / "repro_torch" / "examples").glob("*.py"))
+    assert len(files) == 5
+    for path in files:
+        mods = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods.update(a.name.split(".")[0] for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                mods.add((node.module or "").split(".")[0])
+        assert "repro_torch" in mods or path.name == "__init__.py"
+        assert not mods & {"jax", "jaxlib", "repro", "benchmarks",
+                           "ml_dtypes"}, (path.name, mods)
+        assert mods <= {"repro_torch", "numpy", "torch", "argparse",
+                        "contextlib", "hashlib", "tempfile", "time",
+                        "dataclasses", "__future__"}, (path.name, mods)
 
 
 _BF16_PROBE = r"""

@@ -13,6 +13,10 @@ from pathlib import Path
 import pytest
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+# the JAX round's end-to-end examples: each needs a module of the same
+# name in ``repro_torch.examples`` (``python -m repro_torch.examples.<name>``)
+EXAMPLES = sorted(p.stem for p in
+                  (SRC.parent / "examples").glob("*.py"))
 
 # a reference module whose names the port keeps in another module
 MERGED = {"configs/registry.py": "configs/__init__.py"}
@@ -199,3 +203,23 @@ def test_signature_matches_the_reference(rel, qualname):
     _, _, pfuncs = _module(_port_path(rel))
     assert qualname in pfuncs, f"{rel}:{qualname} missing from the port"
     assert _args(pfuncs[qualname]) == _args(rfuncs[qualname])
+
+
+def test_the_reference_ships_examples():
+    assert EXAMPLES
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_every_example_has_a_port_module(name):
+    """``examples/<name>.py`` of the JAX round has a port module
+    ``repro_torch/examples/<name>.py`` whose ``main(argv=None)`` is the
+    entry point, run as ``python -m``, with ``--device`` defaulting to
+    ``cuda``."""
+    port = SRC / "repro_torch" / "examples" / f"{name}.py"
+    assert port.exists(), f"examples/{name}.py has no port module"
+    _, _, funcs = _module(port)
+    assert "main" in funcs
+    assert _args(funcs["main"])[0] == ("pos", "argv", "None")
+    text = port.read_text()
+    assert 'if __name__ == "__main__":' in text
+    assert 'add_argument("--device", default="cuda"' in text
