@@ -244,7 +244,11 @@ Phases (any failure exits non-zero):
    Adam state as DTensors placed by ``param_specs()`` and
    ``opt_state_specs``; the losses must equal phase 9's first three
    within ``TRAIN_LOSS_TOL`` relative, and the step ms is printed beside
-   phase 9's. (b) The roofline of its first step counted on the card
+   phase 9's. The same cell under ``opt8bit`` (int8 Adam moments) trains
+   3 steps unsharded and 3 as DTensors on that mesh (the optimizer's
+   block-row route): the losses and every moment's ``q`` and ``scale``
+   must be equal bit for bit; both step ms are printed. (b) The
+   roofline of its first step counted on the card
    (``launch.roofline.count_step``) must equal a fake-tensor trace of
    the same cell (``launch.dryrun.build_step``) exactly: FLOPs, unfused
    bytes and collective bytes (0); ``model_flops`` must be
@@ -254,13 +258,16 @@ Phases (any failure exits non-zero):
    10 in their own low-priority processes: ``python -m
    repro_torch.launch.sweep --arch smollm-360m --single-pod-only`` (3
    cells) and ``python -m repro_torch.launch.dryrun --arch
-   kimi-k2-1t-a32b --shape train_4k`` with ``baseline`` and
-   ``moe_a2a``, all on the fake 16 x 16 process group; every record
-   must exist with 256 chips and the closed-form ``model_flops``, and
+   kimi-k2-1t-a32b --shape train_4k`` with ``baseline``, ``moe_a2a``
+   and ``zero3_tuned8``, all on the fake 16 x 16 process group; every
+   record must exist with 256 chips and the closed-form ``model_flops``,
    ``moe_a2a``'s must exchange all-to-all bytes (its collective bytes
-   printed beside baseline's, kind by kind). Each record's terms are
-   printed as a roofline projection at H100 SXM5 data-sheet peaks, never
-   as a card time.
+   printed beside baseline's, kind by kind), and ``zero3_tuned8``'s
+   ``moment_bytes`` must equal 2 R (256 + 4) / 256 summed over kimi-k2's
+   leaves (R a leaf's 256-value blocks padded to 512 rows; 256 fsdp
+   ranks), its ``per_device_total`` printed beside baseline's. Each
+   record's terms are printed as a roofline projection at H100 SXM5
+   data-sheet peaks, never as a card time.
 
 12. the port's four examples, each through its ``main(argv)`` in
    process (``repro_torch.examples``), at the sizes they run by default.
@@ -556,10 +563,13 @@ RESILIENCE_COUNTERS = ("retry.attempts", "retry.retries", "retry.backoff_s",
 # process group, each in its own process, started before phase 10 at
 # low priority (they need the CPU only): the SmolLM sweep's three cells
 # and kimi-k2 x train_4k under each of KIMI_VARIANTS, every record of
-# DRYRUN_CHIPS ranks; moe_a2a must exchange all-to-all bytes.
+# DRYRUN_CHIPS ranks; moe_a2a must exchange all-to-all bytes, and
+# zero3_tuned8 must hold its int8 moments at int8_moment_bytes' count.
+# (a) repeats under INT8_VARIANT, unsharded and as DTensors, bitwise.
 SHARD_STEPS = 3
 SMOLLM_TRAIN_FLOPS = 1.933136363520e12
-KIMI_VARIANTS = ("baseline", "moe_a2a")
+INT8_VARIANT = "opt8bit"
+KIMI_VARIANTS = ("baseline", "moe_a2a", "zero3_tuned8")
 DRYRUN_CHIPS = 256
 DRYRUN_TIMEOUT_S = 420
 DRYRUN_NICE = 10
@@ -3619,6 +3629,114 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def int8_moment_bytes(param_shapes, block: int, ranks: int) -> int:
+    """One rank's bytes of int8 Adam moments (m and v: int8 q of (R,
+    block), float32 scale of (R, 1) per leaf, R the leaf's blocks padded
+    to 512 rows) with the rows sharded over `ranks`."""
+    from repro_torch.train.optimizer import _SHARD_PAD
+
+    total, stack = 0, [param_shapes]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack += list(node.values())
+            continue
+        n = 1
+        for d in node.shape:
+            n *= d
+        rows = -(-n // block)
+        rows += (-rows) % _SHARD_PAD
+        check(rows % ranks == 0, f"{rows} rows do not shard {ranks} ways")
+        total += 2 * rows * (block + 4) // ranks
+    return total
+
+
+def int8_sharded_steps(model, cfg, shape, mesh, seed: int,
+                       card: str) -> dict:
+    """11a under INT8_VARIANT: SHARD_STEPS steps of phase 9's cell
+    unsharded, then as DTensors on `mesh`; the losses and every
+    moment's q and scale must be equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.data.synthetic import global_batch
+    from repro_torch.launch.dryrun import (
+        place_batch,
+        place_train_state,
+        under_policy,
+    )
+    from repro_torch.launch.variants import get_variant
+    from repro_torch.train.optimizer import OptConfig, _flatten, _is_q8, \
+        _paths
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    policy, _, opt = get_variant(INT8_VARIANT, cfg, SHAPES["train_4k"])
+    opt_cfg = OptConfig(**opt)
+    check(opt_cfg.moments == "int8", f"{INT8_VARIANT} has "
+          f"{opt_cfg.moments} moments")
+    step = make_train_step(model, opt_cfg)
+    runs = {}
+    for name, fn in (("plain", step),
+                     ("dtensor", under_policy(step, mesh, policy))):
+        state = init_train_state(model, seed, opt_cfg)
+        if name == "dtensor":
+            state = place_train_state(model, state, mesh, policy, opt_cfg)
+        losses, ms = [], []
+        for s in range(SHARD_STEPS):
+            batch = {k: torch.from_numpy(np.asarray(v)).cuda()
+                     for k, v in global_batch(cfg, s, TRAIN_BATCH, TRAIN_SEQ,
+                                              seed=seed).items()}
+            if name == "dtensor":
+                batch = place_batch(model, batch, shape, mesh, policy)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = fn(state, batch)
+            loss = metrics["loss"]
+            losses.append(float(loss.full_tensor() if name == "dtensor"
+                                else loss))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        moments = {}
+        for key in ("m", "v"):
+            for leaf, q8 in zip(_paths(state["opt"][key]),
+                                _flatten(state["opt"][key], _is_q8)):
+                for part in ("q", "scale"):
+                    t = q8[part]
+                    moments[f"{key}/{leaf}/{part}"] = t.full_tensor() \
+                        if name == "dtensor" else t
+        runs[name] = {"losses": losses, "step_ms_all": ms,
+                      "step_ms": float(np.median(ms[1:])),
+                      "moments": moments}
+        del state, metrics, batch
+    plain, dt = runs["plain"], runs["dtensor"]
+    check(dt["losses"] == plain["losses"], f"{INT8_VARIANT} DTensor losses "
+          f"{dt['losses']} are not the unsharded {plain['losses']}")
+    check(sorted(dt["moments"]) == sorted(plain["moments"]),
+          "the DTensor state's moments are not the unsharded state's")
+    for key, t in dt["moments"].items():
+        want = plain["moments"][key]
+        check(t.dtype == want.dtype and t.shape == want.shape
+              and torch.equal(t, want), f"{INT8_VARIANT}: {key} differs "
+              f"from the unsharded step's")
+    out = {"losses": plain["losses"], "plain_step_ms": plain["step_ms"],
+           "dtensor_step_ms": dt["step_ms"],
+           "plain_step_ms_all": plain["step_ms_all"],
+           "dtensor_step_ms_all": dt["step_ms_all"],
+           "moment_tensors": len(plain["moments"]),
+           "moment_bytes": sum(t.numel() * t.element_size()
+                               for t in plain["moments"].values())}
+    log(f"sharding {card}: SmolLM-360M [{INT8_VARIANT}] B={TRAIN_BATCH} "
+        f"S={TRAIN_SEQ}, int8 moments ({out['moment_bytes']} bytes): "
+        f"{SHARD_STEPS} steps as DTensors on the world-1 NCCL mesh equal "
+        f"the unsharded steps bit for bit (losses {plain['losses']}, "
+        f"{out['moment_tensors']} q and scale tensors); step "
+        f"{out['dtensor_step_ms']:.2f} ms as DTensors beside "
+        f"{out['plain_step_ms']:.2f} ms unsharded (median of steps "
+        f"2-{SHARD_STEPS})")
+    return out
+
+
 def closed_form_flops(cfg, shape, counts: dict) -> float:
     """6 N_active B S for training, 2 N B S for a prefill, 2 N B for a
     decode step (N: the active parameters without the embeddings)."""
@@ -3748,6 +3866,7 @@ def phase_sharding(seed: int, train: dict, dryruns: list, work: Path,
             f"{out['peak_device_bytes'] / 2**30:.3f} GiB beside the "
             f"trace's per_device_total {memory['per_device_total'] / 2**30:.3f}"
             f" GiB")
+        out["int8"] = int8_sharded_steps(model, cfg, shape, mesh, seed, card)
     finally:
         dist.destroy_process_group()
 
@@ -3813,6 +3932,33 @@ def phase_sharding(seed: int, train: dict, dryruns: list, work: Path,
         "baseline vs moe_a2a (projection, not a card time): "
         + "; ".join(f"{k} {v[0]:.6e} vs {v[1]:.6e}"
                     for k, v in out["kimi_collectives"].items()))
+    z8 = records[f"kimi-k2-1t-a32b_train_4k_16x16_{KIMI_VARIANTS[2]}"]
+    policy8, _, opt8 = get_variant(KIMI_VARIANTS[2], cfg,
+                                   SHAPES["train_4k"])
+    opt8 = OptConfig(**opt8)
+    ranks = 1
+    for axis in policy8.rules["fsdp"]:
+        ranks *= {"data": 16, "model": 16}.get(axis, 1)
+    kimi = build_model(get_config("kimi-k2-1t-a32b"), flags, device="cuda")
+    want8 = int8_moment_bytes(kimi.param_shapes(), opt8.block, ranks)
+    check(opt8.moments == "int8" and z8["moment_bytes"] == want8,
+          f"{KIMI_VARIANTS[2]}: moment_bytes {z8['moment_bytes']}, the "
+          f"formula gives {want8}")
+    check(z8["memory"]["argument_bytes"] > want8, f"{KIMI_VARIANTS[2]}: "
+          f"argument_bytes do not hold the moments")
+    out["kimi_int8"] = {
+        "moment_bytes": z8["moment_bytes"], "formula": want8,
+        "fsdp_ranks": ranks,
+        "forced_replications": z8["forced_replications"],
+        "per_device_total": z8["memory"]["per_device_total"],
+        "baseline_per_device_total": base["memory"]["per_device_total"]}
+    log(f"dryrun kimi-k2-1t-a32b x train_4k [{KIMI_VARIANTS[2]}]: int8 "
+        f"moments {z8['moment_bytes']} bytes/rank = 2 R (block + 4) / "
+        f"{ranks} summed over the leaves ({want8}); forced replications "
+        f"{z8['forced_replications']}; per_device_total "
+        f"{z8['memory']['per_device_total'] / 2**30:.3f} GiB beside "
+        f"baseline's {base['memory']['per_device_total'] / 2**30:.3f} GiB "
+        f"(fake-tensor trace, not a card measurement)")
     return out
 
 

@@ -25,7 +25,11 @@ also listed under ``"divergences"``):
   ``bytes accessed`` (there is no XLA), ``hlo_bytes`` the number of
   operators counted, ``compile_s`` 0.0 (nothing is compiled);
 * ``forced_replications`` counts the port's deliberate redistributions
-  to ``Replicate()`` by site (``sharding.constrain.force_replicate``);
+  to ``Replicate()`` by site (``sharding.constrain.force_replicate``,
+  and the int8 moments' ``opt8_*`` sites in ``train.optimizer``);
+* ``moment_bytes`` (the port's own key) is rank 0's local bytes of the
+  optimizer moments, m and v (``q`` and ``scale`` for int8), a part of
+  ``argument_bytes``; 0 for a serving cell;
 * ``device`` is the device type of the mesh and the fake tensors,
   ``--device`` (default "cuda", resolved by ``repro_torch.resolve_device``,
   so a machine without a card raises unless asked for "cpu"): on
@@ -55,7 +59,11 @@ from repro_torch import resolve_device
 from repro_torch.configs import SHAPES, applicable_shapes, get_config
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.modelflops import model_flops, param_counts
-from repro_torch.launch.roofline import count_step, roofline_from_costs
+from repro_torch.launch.roofline import (
+    _local_tensors,
+    count_step,
+    roofline_from_costs,
+)
 from repro_torch.launch.variants import VARIANTS, get_variant
 from repro_torch.models.registry import build_model
 from repro_torch.sharding.constrain import FORCED, use_policy
@@ -80,6 +88,8 @@ DIVERGENCES = {
     "hlo_bytes": "operators counted on rank 0 (no HLO text)",
     "compile_s": "0.0: nothing is compiled",
     "roofline": "H100 SXM5 peaks; bytes are an unfused upper bound",
+    "moment_bytes": "the port's own key: rank 0's local bytes of the "
+                    "optimizer moments (m and v), part of argument_bytes",
 }
 
 
@@ -211,8 +221,6 @@ def build_cell(arch: str, shape_name: str, mesh, variant: str = "baseline",
 
 
 def _alias_bytes(args, out) -> int:
-    from repro_torch.launch.roofline import _local_tensors
-
     ins = {id(t.untyped_storage()) for t in _local_tensors(args)}
     seen, n = set(), 0
     for t in _local_tensors(out):
@@ -227,8 +235,6 @@ def trace(step, args) -> tuple:
     """(Costs, memory record) of one run of ``step(*args)`` counted by
     ``StepCounter``: rank 0's local argument, output, temporary and
     aliased bytes (module doc)."""
-    from repro_torch.launch.roofline import _local_tensors
-
     out, costs = count_step(step, *args)
     arg_bytes = sum(local_nbytes(t) for t in _local_tensors(args))
     out_bytes = sum(local_nbytes(t) for t in _local_tensors(out))
@@ -258,6 +264,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         costs, memory = trace(step, args)
         t_count = time.time() - t0
     cfg, shape, model = meta["cfg"], meta["shape"], meta["model"]
+    moments = [args[0]["opt"][k] for k in ("m", "v")] \
+        if shape.kind == "train" else []
+    moment_bytes = sum(local_nbytes(t) for t in _local_tensors(moments))
     mf = model_flops(cfg, shape, model.param_shapes())
     roof = roofline_from_costs(costs, chips, mf)
     counts = param_counts(cfg, model.param_shapes())
@@ -269,6 +278,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "param_count": counts["total_with_embed"],
         "param_active": counts["active"],
         "memory": memory,
+        "moment_bytes": moment_bytes,
         "xla_cost_analysis": {"flops": costs.dot_flops,
                               "bytes accessed": costs.bytes_accessed},
         "roofline": roof.to_dict(),
@@ -286,7 +296,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         print(f"  memory/rank: args {m['argument_bytes']/2**30:.2f} GiB  "
               f"temp {m['temp_bytes']/2**30:.2f} GiB  total "
               f"{m['per_device_total']/2**30:.2f} GiB")
-        print(f"  forced replications: {rec['forced_replications']}")
+        print(f"  moments/rank {moment_bytes/2**30:.2f} GiB  forced "
+              f"replications: {rec['forced_replications']}")
         r = rec["roofline"]
         print(f"  roofline projection at H100 SXM5 datasheet peaks, "
               f"{chips} ranks: compute {r['compute_s']*1e3:.2f}ms  "

@@ -103,6 +103,34 @@ def _mask_padded(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     return logits + mask
 
 
+def _one_vocab_split(logits):
+    """A DTensor's (tokens, V) logits split or summed over at most one
+    mesh dim on V: DTensor's gather masks the index once per such mesh
+    dim into one buffer, which fails for two (fake tensors raise, real
+    ones conflict). Logits partial or sharded on V over several mesh
+    dims (a contraction over an FSDP-sharded model dim, as zero3's rules
+    give on the multi-pod mesh) keep that on the last of them and are
+    reduced or gathered on the others (``FORCED["xent_vocab"]``)."""
+    from repro_torch.sharding.constrain import FORCED, is_dtensor
+
+    if not is_dtensor(logits):
+        return logits
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    d = logits.ndim - 1
+    split = [j for j, p in enumerate(logits.placements)
+             if isinstance(p, Partial) or (isinstance(p, Shard)
+                                           and p.dim == d)]
+    if len(split) < 2:
+        return logits
+    FORCED["xent_vocab"] += 1
+    keep = split[-1]
+    placements = [Replicate() if j in split and j != keep
+                  else Shard(d) if j == keep else p
+                  for j, p in enumerate(logits.placements)]
+    return logits.redistribute(logits.device_mesh, placements)
+
+
 def _token_xent(logits: torch.Tensor, labels: torch.Tensor,
                 vocab: int) -> torch.Tensor:
     """(tokens, 1) float32: each token's logsumexp less its gold logit.
@@ -111,7 +139,7 @@ def _token_xent(logits: torch.Tensor, labels: torch.Tensor,
     vocab-sharded logits leaves a masked partial sum that must be
     reduced at the index's shape."""
     logits = _mask_padded(logits.float(), vocab)
-    logits = logits.reshape(-1, logits.shape[-1])
+    logits = _one_vocab_split(logits.reshape(-1, logits.shape[-1]))
     logz = torch.logsumexp(logits, dim=-1, keepdim=True)
     gold = torch.gather(logits, 1, labels.reshape(-1, 1).long())
     return logz - gold

@@ -1,11 +1,14 @@
-"""Shared inputs and the JAX side of ``tests/test_torch_sharding_dist.py``.
+"""Shared inputs and the JAX side of ``tests/test_torch_sharding_dist.py``
+and ``tests/test_torch_opt8_sharded.py``.
 
 ``python tests/_torch_dist.py OUT`` runs the JAX package's multi-device
 functions on 8 host devices (``AxisType.Auto`` meshes: jax.make_mesh's
 default Explicit axes refuse the reference's ``shard_map`` calls on jax
 0.9) and saves their results to the npz file OUT. The port's ranks
 (``tests/_torch_dist_worker.py``) build the same inputs from the same
-numpy seeds with ``inputs``."""
+numpy seeds with ``inputs``. ``python tests/_torch_dist.py OUT opt8``
+runs the JAX package's int8 update over ``opt8_inputs`` (``jax_opt8``).
+"""
 import os
 import sys
 
@@ -66,6 +69,40 @@ def inputs() -> dict:
                          dtype=np.int32) for k in ("tokens", "labels")}
         for _ in range(2)]
     return out
+
+
+# int8 moments on a (2, 2) mesh (tests/test_torch_opt8_sharded.py): the
+# two variants' rules, and leaves beside the model's that take the
+# route's other cases: sharded on non-leading dims with data spanning
+# row ranks and a partial last block (odd, expert), replicated (vec), no
+# dim that the row group divides (tiny)
+OPT8_VARIANTS = ("opt8bit", "zero3_tuned8")
+OPT8_EXTRA = {"odd": ((3, 200, 132), (None, "tp", "fsdp")),
+              "expert": ((4, 8, 96, 40), (None, "expert", "fsdp",
+                                          "tp_inner")),
+              "vec": ((1000,), (None,)),
+              "tiny": ((3, 5, 7), (None, None, None))}
+
+
+def opt8_inputs() -> dict:
+    """The int8 cases' inputs from fixed seeds: the reduced tinyllama's
+    params (``init_flat``) and the extra leaves (under "x/"), seeded
+    gradients for two updates, two train batches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_flat
+
+    rng = np.random.default_rng(24)
+    tr = train_config(get_config)
+    params = dict(init_flat(tr, 3))
+    for name, (shape, _) in OPT8_EXTRA.items():
+        params[f"x/{name}"] = rng.standard_normal(shape).astype(np.float32)
+    grads = [{k: (rng.standard_normal(v.shape) * 10.0 ** -s)
+              .astype(np.float32) for k, v in params.items()}
+             for s in range(2)]
+    batches = [{k: rng.integers(0, tr.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                                dtype=np.int32) for k in ("tokens", "labels")}
+               for _ in range(2)]
+    return {"params": params, "grads": grads, "batches": batches}
 
 
 def nest(flat: dict) -> dict:
@@ -150,5 +187,33 @@ def jax_reference(path: str):
     np.savez(path, **res)
 
 
+def jax_opt8(path: str):
+    """The JAX package's int8 ``adamw_update`` (no clip) over
+    ``opt8_inputs``: each moment's q and scale after each update, saved
+    under the worker's names ("update{s}/m/<leaf>/q")."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.train.optimizer import OptConfig, adamw_update, init_opt_state
+
+    inp = opt8_inputs()
+    cfg = OptConfig(moments="int8", grad_clip=0.0)
+    params = jax.tree.map(jnp.asarray, nest(inp["params"]))
+    state = init_opt_state(params, cfg)
+    res = {}
+    for s, g in enumerate(inp["grads"]):
+        params, state, _ = adamw_update(
+            params, jax.tree.map(jnp.asarray, nest(g)), state, cfg)
+        for key in ("m", "v"):
+            flat = jax.tree_util.tree_flatten_with_path(state[key])[0]
+            for path_, leaf in flat:
+                name = "/".join(str(getattr(e, "key", e)) for e in path_)
+                res[f"update{s}/{key}/{name}"] = np.asarray(leaf)
+    np.savez(path, **res)
+
+
 if __name__ == "__main__":
-    jax_reference(sys.argv[1])
+    if sys.argv[2:] == ["opt8"]:
+        jax_opt8(sys.argv[1])
+    else:
+        jax_reference(sys.argv[1])

@@ -8,8 +8,11 @@ same FLOPs and bytes, no collective bytes. The process group is gloo on
 the CPU and NCCL on a card (marked ``cuda``):
     python -m pytest -m cuda tests/test_torch_card_sharding.py
 Tolerances: losses within 1e-6 relative, weights within 1e-6 of each
-tensor's max |value| (the same float32 operators run in both). This
-file imports neither the JAX package nor jax."""
+tensor's max |value| (the same float32 operators run in both). With
+int8 moments (``opt8bit``'s ``OptConfig``) the world-1 DTensor steps
+run the block-row route of ``train.optimizer``: their losses and every
+moment's ``q`` and ``scale`` must equal the unsharded steps' bit for
+bit. This file imports neither the JAX package nor jax."""
 import socket
 
 import numpy as np
@@ -109,3 +112,55 @@ def test_world_one_mesh_step_equals_unsharded(world_one):
     assert costs.dot_flops > 0 and costs.collective_bytes == 0
     assert (fake.dot_flops, fake.bytes_accessed, fake.collective_bytes) \
         == (costs.dot_flops, costs.bytes_accessed, costs.collective_bytes)
+
+
+def _moments(opt: dict) -> dict:
+    from repro_torch.train.optimizer import _flatten, _is_q8, _paths
+
+    out = {}
+    for key in ("m", "v"):
+        for name, s in zip(_paths(opt[key]), _flatten(opt[key], _is_q8)):
+            for part in ("q", "scale"):
+                t = s[part]
+                out[f"{key}/{name}/{part}"] = t.full_tensor() \
+                    if hasattr(t, "full_tensor") else t
+    return out
+
+
+@pytest.mark.parametrize("world_one", DEVICES, indirect=True)
+def test_world_one_int8_step_equals_unsharded(world_one):
+    from repro_torch.launch.dryrun import (
+        place_batch,
+        place_train_state,
+        under_policy,
+    )
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding.rules import ShardingPolicy
+
+    dev = world_one
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("smollm-360m").reduced()
+    opt = OptConfig(moments="int8")
+    model = DecoderLM(cfg, RunFlags(dtype="float32"), device=dev)
+    step = make_train_step(model, opt)
+    plain, losses, want = _state(cfg, dev, opt), [], []
+    for b in _batches(cfg, dev):
+        plain, m = step(plain, b)
+        losses.append(float(m["loss"]))
+        want.append(_moments(plain["opt"]))
+
+    mesh = make_local_mesh(1, 1, device_type=dev.type)
+    policy = ShardingPolicy()
+    shape = ShapeConfig("t", S, B, "train")
+    sharded = under_policy(step, mesh, policy)
+    state = place_train_state(model, _state(cfg, dev, opt), mesh, policy,
+                              opt)
+    assert hasattr(state["opt"]["m"]["embed"]["q"], "full_tensor")
+    for i, b in enumerate(_batches(cfg, dev)):
+        state, m = sharded(state, place_batch(model, b, shape, mesh, policy))
+        assert float(m["loss"].full_tensor()) == losses[i]
+        got = _moments(state["opt"])
+        assert sorted(got) == sorted(want[i])
+        for name, t in got.items():
+            assert t.dtype == want[i][name].dtype, name
+            assert torch.equal(t, want[i][name]), name
