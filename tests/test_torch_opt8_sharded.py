@@ -66,14 +66,22 @@ def results(tmp_path_factory):
     cmds = [[str(TESTS / "_torch_dist.py"), str(tmp / "ref.npz"), "opt8"]]
     cmds += [[str(TESTS / "_torch_dist_worker.py"), "4", str(r), str(port),
               str(tmp / "w4.npz"), "opt8"] for r in range(4)]
-    procs = [subprocess.Popen([sys.executable] + c, env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for c in cmds]
-    errs = []
-    for p in procs:
-        _, err = p.communicate(timeout=120)
-        if p.returncode:
-            errs.append(err[-3000:])
+    procs = []
+    try:
+        for c in cmds:
+            procs.append(subprocess.Popen(
+                [sys.executable] + c, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        errs = []
+        for p in procs:
+            _, err = p.communicate(timeout=120)
+            if p.returncode:
+                errs.append(err[-3000:])
+    finally:
+        # a time limit or timeout mid-wait leaves no gloo rank running
+        for p in procs:
+            with p:
+                p.kill()
     assert not errs, errs[0]
     res = np.load(tmp / "w4.npz")
     return {"ref": np.load(tmp / "ref.npz"), **{k: res[k] for k in res.files}}

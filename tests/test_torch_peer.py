@@ -362,10 +362,16 @@ def test_crashed_leader_storm_stays_within_twice_unique(tmp_path):
                 mesh.set_fault(src, tdist.FaultPlan.crashed())
     mesh = build_peer_mesh(cfg, n, seed=6, transfer_hook=crash_leader)
     clients = [mesh.client(i) for i in range(n)]
+    # One probe at a time, so the first worker to probe leads every
+    # flight whatever the scheduler does; without it a worker that
+    # starts late on a busy host can catch up with the leader's probe
+    # loop and lead the rest.
+    probing = threading.Lock()
     for i, client in enumerate(clients):    # count the flights each leads
         def counted(names, chunk_len, on_ready, _probe=client.probe_chunks,
                     _i=i):
-            leads, futs = _probe(names, chunk_len, on_ready)
+            with probing:
+                leads, futs = _probe(names, chunk_len, on_ready)
             led[_i] += len(leads)
             return leads, futs
         client.probe_chunks = counted

@@ -36,22 +36,30 @@ def _env():
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dist")
-    procs = [subprocess.Popen(
-        [sys.executable, str(TESTS / "_torch_dist.py"), str(tmp / "ref.npz")],
-        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)]
-    for world in (8, 4):
-        port = _port()
-        procs += [subprocess.Popen(
-            [sys.executable, str(TESTS / "_torch_dist_worker.py"),
-             str(world), str(r), str(port), str(tmp / f"w{world}.npz")],
+    procs = []
+    try:
+        procs.append(subprocess.Popen(
+            [sys.executable, str(TESTS / "_torch_dist.py"),
+             str(tmp / "ref.npz")],
             env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for r in range(world)]
-    errs = []
-    for p in procs:
-        _, err = p.communicate(timeout=240)
-        if p.returncode:
-            errs.append(err[-3000:])
+            text=True))
+        for world in (8, 4):
+            port = _port()
+            procs += [subprocess.Popen(
+                [sys.executable, str(TESTS / "_torch_dist_worker.py"),
+                 str(world), str(r), str(port), str(tmp / f"w{world}.npz")],
+                env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True) for r in range(world)]
+        errs = []
+        for p in procs:
+            _, err = p.communicate(timeout=240)
+            if p.returncode:
+                errs.append(err[-3000:])
+    finally:
+        # a time limit or timeout mid-wait leaves no gloo rank running
+        for p in procs:
+            with p:
+                p.kill()
     assert not errs, errs[0]
     return {k: np.load(tmp / f"{k}.npz") for k in ("ref", "w8", "w4")}
 
