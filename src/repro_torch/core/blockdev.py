@@ -21,8 +21,8 @@ Read APIs:
   stage D;
 * streamed (``fetch_chunks(..., streamed=True)``, the default restore):
   stage F on a producer thread pushes each resolved ciphertext into a
-  ``BoundedQueue`` (L1 hits first, then each L2 reconstruction the
-  moment its k-th stripe lands, then origin fetches) and
+  ``BoundedQueue`` (L1 hits first, then each L2 reconstruction as its
+  own stripe wave is served, then origin fetches) and
   ``BatchDecoder.decrypt_stream`` decodes tiles on the caller thread
   while fetch is still running;
 * prefetch (``fetch_chunks(..., materialize=False)``): stage F only,
@@ -530,8 +530,8 @@ class TieredReader:
         """One batched L2 fetch of `pending` names; returns the misses
         as {name: simulated latency of the miss}, in `pending` order.
         Streamed (a sink and an L2 that takes ``on_ready``): each chunk
-        resolves and feeds the sink the moment its k-th stripe is
-        rebuilt, instead of after the whole stripe wave."""
+        resolves and feeds the sink as soon as its own stripe wave is
+        served and rebuilt, instead of after every chunk's wave."""
         cs = self.m.chunk_size
         kw = {"hedge": l2_hedge} \
             if self._l2_hedges and l2_hedge is not None else {}

@@ -33,12 +33,13 @@ Three resilience layers sit between the reader and the simulated fleet:
   of the two. Hedges are counted (``l2.hedges`` / ``l2.hedge_wins``).
   Off by default.
 
-Stripe requests go through a shared thread pool. The batched
-``get_chunks`` reconstructs every hit through one
-``ErasureCoder.decode_many`` call (one GF matmul per erasure signature);
-in streaming mode (``get_chunks(..., on_ready=...)``) each chunk is
-instead rebuilt with the per-chunk numpy ``decode`` the moment its k-th
-stripe lands and handed to the callback.
+The batched ``get_chunks`` sends every stripe request through a shared
+thread pool and reconstructs every hit through one
+``ErasureCoder.decode_many`` call (one GF matmul per erasure signature).
+In streaming mode (``get_chunks(..., on_ready=...)``) the calling thread
+serves each chunk's stripe wave in turn, rebuilds the chunk with the
+per-chunk ``decode`` (an XOR for the one-parity code) and hands it to
+the callback before the next chunk's wave.
 
 Measurement and control: every hit's latency lands in ``fetch_lat``
 (``l2.fetch``) and each node's served and refused requests in its
@@ -51,7 +52,6 @@ from __future__ import annotations
 
 import math
 import threading
-from concurrent.futures import FIRST_COMPLETED, wait
 from dataclasses import dataclass
 
 import numpy as np
@@ -280,9 +280,10 @@ class DistributedCache:
             for i in range(num_nodes)}
         self.ring = HashRing(list(self.nodes), vnodes=64)
         self.fetch_lat = LatencyRecorder("l2.fetch")
-        # stripe-request fan-out: wide enough to keep several chunks'
-        # worth of per-node GETs in flight (stripes of one chunk go to
-        # distinct nodes, so they never serialize on a node lock)
+        # the batched wave's stripe-request fan-out (the streamed wave
+        # runs on its caller's thread): wide enough to keep several
+        # chunks' worth of per-node GETs in flight (stripes of one chunk
+        # go to distinct nodes, so they never serialize on a node lock)
         self.stripe_parallelism = stripe_parallelism or 4 * n
         self._stripe_pool = LazyPool()
         # resilience knobs
@@ -464,18 +465,38 @@ class DistributedCache:
         Returns {name: (latency_s, bytes | None)}.
 
         ``on_ready(name, latency_s, data)`` switches to STREAMING
-        reconstruction: each chunk is rebuilt and handed to the callback
-        the moment its k-th stripe lands (per-chunk ``decode``), feeding
-        the streamed read path instead of a terminal dict. The work per
-        name is unchanged (still n requests issued up front — the
-        constant-work property holds); the reported latency is the
-        worst of the k earliest-arriving hits.
+        reconstruction on the calling thread: name by name, its n stripe
+        GETs are issued and accounted (hedges included), and a hit is
+        rebuilt (per-chunk ``decode``) and handed to the callback before
+        the next name's wave, feeding the streamed read path instead of
+        a terminal dict. The work per name is unchanged (always n
+        requests, any k reconstruct, latency = k-th fastest arrival).
 
         ``hedge`` overrides the cache-level hedging default for this
         call (None = inherit ``hedge_quantile``)."""
-        k, n = self.coder.k, self.coder.n
+        n = self.coder.n
         names = list(dict.fromkeys(names))   # dedup: one wave per name
         deadline_h = self._hedge_deadline(hedge)
+        out: dict = {}
+        if on_ready is not None:
+            for name in names:
+                pk = self._read_placement(name)
+                resp = []
+                for i, node in enumerate(self.ring.lookup(pk, count=n)):
+                    lat, v = self._stripe_get(node, self._stripe_key(pk, i))
+                    resp.append([lat, i, v, node])
+                lat_c, stripes = self._account_stripes(pk, resp, deadline_h)
+                if stripes is None:
+                    COUNTERS.inc("l2.misses")
+                    out[name] = (lat_c, None)
+                    continue
+                data = self.coder.decode(stripes, chunk_len)
+                COUNTERS.inc("l2.hits")
+                self.fetch_lat.record(lat_c)
+                out[name] = (lat_c, data)
+                self._maybe_salt(name, data)
+                on_ready(name, lat_c, data)
+            return out
         pool = self._stripe_pool.get(self.stripe_parallelism)
         fut_meta = {}
         placement = {}
@@ -488,42 +509,6 @@ class DistributedCache:
                     self._stripe_get, node,
                     self._stripe_key(pk, i))] = (name, i, node)
         responses: dict[str, list] = {name: [] for name in names}
-        out: dict = {}
-        if on_ready is not None:
-            # streaming mode: process stripe arrivals as they complete
-            done_count = {name: 0 for name in names}
-            emitted: set = set()
-            pending = set(fut_meta)
-            while pending:
-                done, pending = wait(pending, return_when=FIRST_COMPLETED)
-                for fut in done:
-                    name, i, node = fut_meta[fut]
-                    lat, v = fut.result()
-                    done_count[name] += 1
-                    resp = responses[name]
-                    resp.append([lat, i, v, node])
-                    if name in emitted:
-                        continue
-                    nhits = sum(1 for r in resp if r[2] is not None)
-                    if nhits < k and done_count[name] < n:
-                        continue
-                    # k value-bearing stripes landed (or the wave is
-                    # done): hedge stragglers, reconstruct, emit
-                    lat_c, stripes = self._account_stripes(
-                        placement[name], resp, deadline_h)
-                    if stripes is not None:
-                        emitted.add(name)
-                        data = self.coder.decode(stripes, chunk_len)
-                        COUNTERS.inc("l2.hits")
-                        self.fetch_lat.record(lat_c)
-                        out[name] = (lat_c, data)
-                        self._maybe_salt(name, data)
-                        on_ready(name, lat_c, data)
-                    elif done_count[name] == n:
-                        emitted.add(name)
-                        COUNTERS.inc("l2.misses")
-                        out[name] = (lat_c, None)
-            return out
         for fut, (name, i, node) in fut_meta.items():
             lat, v = fut.result()
             responses[name].append([lat, i, v, node])

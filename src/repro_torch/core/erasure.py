@@ -11,10 +11,17 @@ batched ``decode_many`` sends each erasure signature's reconstruction
 through the ``matmul_fn`` hook (``kernels.gf256.ops.rs_matmul_fn``).
 Both hooks take and return numpy, so the coder behaves exactly as the
 reference; numpy here is the oracle.
+
+The per-chunk ``decode`` (the streamed L2 read) stays on the host, where
+its chunk is headed: with one parity stripe a lost data stripe is the
+XOR of the k stripes in hand, and a chunk is assembled with one join.
+Every rebuild from a parity stripe counts ``l2.parity_rebuilds``.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from repro_torch.core.telemetry import COUNTERS
 
 # --------------------------------------------------- GF(256) tables (0x11d)
 
@@ -124,6 +131,8 @@ class ErasureCoder:
         # matmul_fn(matrix, (k, L) uint8) -> (r, L) uint8: the GF matmul
         # of the batched ``decode_many`` reconstruction
         self.matmul_fn = matmul_fn
+        self._inverses: dict[tuple, np.ndarray] = {}  # decode's, by signature
+        COUNTERS.inc("l2.parity_rebuilds", 0)   # readable before a rebuild
 
     def stripe_len(self, chunk_len: int) -> int:
         return (chunk_len + self.k - 1) // self.k
@@ -151,14 +160,26 @@ class ErasureCoder:
         """stripes: {index -> bytes}, any k entries; returns the chunk."""
         if len(stripes) < self.k:
             raise ValueError(f"need {self.k} stripes, got {len(stripes)}")
-        idx = sorted(stripes)[: self.k]
-        if idx == list(range(self.k)):
-            data = np.stack([np.frombuffer(stripes[i], np.uint8) for i in idx])
-        else:
-            inv = _gf_matinv(self.matrix[idx])
-            got = np.stack([np.frombuffer(stripes[i], np.uint8) for i in idx])
-            data = gf_matmul(inv, got)
-        return data.reshape(-1)[:chunk_len].tobytes()
+        k = self.k
+        idx = tuple(sorted(stripes)[:k])
+        if idx[-1] < k:
+            return b"".join(stripes[i] for i in idx)[:chunk_len]
+        COUNTERS.inc("l2.parity_rebuilds")
+        if self.n - k == 1:
+            # the parity row is all ones: the lost data stripe is the XOR
+            # of the k in hand (k - 1 data stripes and the parity)
+            lost = next(i for i in range(k) if i not in stripes)
+            acc = np.frombuffer(stripes[idx[0]], np.uint8).copy()
+            for i in idx[1:]:
+                np.bitwise_xor(acc, np.frombuffer(stripes[i], np.uint8),
+                               out=acc)
+            parts = [acc if i == lost else stripes[i] for i in range(k)]
+            return b"".join(parts)[:chunk_len]
+        inv = self._inverses.get(idx)
+        if inv is None:
+            inv = self._inverses[idx] = _gf_matinv(self.matrix[list(idx)])
+        got = np.stack([np.frombuffer(stripes[i], np.uint8) for i in idx])
+        return gf_matmul(inv, got).reshape(-1)[:chunk_len].tobytes()
 
     def decode_many(self, stripes_list: list, chunk_lens: list) -> list:
         """Batched decode: one GF matmul per distinct (surviving-stripe
@@ -186,6 +207,7 @@ class ErasureCoder:
                 np.frombuffer(b"".join(stripes_list[pos][i]
                                        for pos in members), np.uint8)
                 for i in idx])
+            COUNTERS.inc("l2.parity_rebuilds", len(members))
             inv = _gf_matinv(self.matrix[list(idx)])
             mm = self.matmul_fn if self.matmul_fn is not None else gf_matmul
             data = np.asarray(mm(inv, got), np.uint8)

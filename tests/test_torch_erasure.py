@@ -17,6 +17,7 @@ from repro.kernels.gf256.ops import \
 from repro.kernels.parity.ops import \
     parity_fn_for_erasure as jax_parity_fn  # noqa: E402
 from repro_torch.core import erasure as ter  # noqa: E402
+from repro_torch.core.telemetry import COUNTERS  # noqa: E402
 from repro_torch.kernels.gf256 import ops as gops  # noqa: E402
 from repro_torch.kernels.parity import ops as pops  # noqa: E402
 
@@ -123,3 +124,32 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors(wrapper):
         call("meta")
     with pytest.raises(TypeError):
         call("cpu", torch.int32)
+
+
+def _lost(k, n, drop):
+    return [(k, n, lost, clen) for lost in drop
+            for clen in (524288, 524281, 1000)]
+
+
+@pytest.mark.parametrize("k, n, lost, clen", _lost(
+    4, 5, [(i,) for i in range(5)]) + _lost(
+    4, 6, [(0, 1), (2, 5), (1, 4), (4, 5)]))
+def test_decode_matches_jax_byte_for_byte(k, n, lost, clen):
+    """The per-chunk ``decode`` (4-of-5: a lost data stripe is the XOR of
+    the four in hand; 4-of-6: the cached GF(256) inverse) equals the JAX
+    package's ``decode`` and the port's ``decode_many``, and counts a
+    rebuild exactly where a parity stripe is among the four."""
+    tc, jc = _port_coder(k, n), jer.ErasureCoder(k, n)
+    chunk = _rand(clen).tobytes()
+    stripes = tc.encode(chunk)
+    sub = {i: s for i, s in enumerate(stripes) if i not in lost}
+    before = COUNTERS.get("l2.parity_rebuilds")
+    got = tc.decode(sub, clen)
+    rebuilt = sorted(sub)[k - 1] >= k
+    assert COUNTERS.get("l2.parity_rebuilds") - before == rebuilt
+    assert got == jc.decode(sub, clen) == chunk
+    assert type(got) is bytes
+    assert tc.decode(sub, clen) == got          # the cached inverse, again
+    assert set(tc._inverses) == ({tuple(sorted(sub)[:k])}
+                                 if rebuilt and n - k > 1 else set())
+    assert tc.decode_many([sub, dict(sub)], [clen, clen]) == [got, got]

@@ -268,3 +268,49 @@ def test_tampered_l2_stripe_raises_naming_it_and_is_evicted(image, mode):
     assert h.counters.get("read.origin_fetches") == before + 1
     b.close()
     a.close()
+
+
+@pytest.mark.parametrize("fault", ["healthy", "crashed"])
+def test_streamed_wave_on_the_callers_thread(fault):
+    """A streamed ``get_chunks`` serves every name's wave on the calling
+    thread: ``on_ready`` once per hit, in order, and exactly n GETs a
+    name on its placement nodes (each node's ``get_lat`` records every
+    GET it answers, a refused one too). ``l2.parity_rebuilds`` counts
+    the hits whose k fastest stripes include the parity stripe."""
+    rng = np.random.default_rng(12)
+    cache = tdist.DistributedCache(
+        num_nodes=12, seed=9, parity_fn=parity_fn_for_erasure("cpu"),
+        matmul_fn=rs_matmul_fn("cpu"), stripe_deadline_s=NO_TAIL_DEADLINE_S)
+    datas = {f"c{i:02d}": rng.integers(0, 256, 1000, np.uint8).tobytes()
+             for i in range(40)}
+    for name, data in datas.items():
+        cache.put_chunk(name, data)
+    if fault == "crashed":
+        cache.set_fault("cache-003", tdist.FaultPlan.crashed())
+    names = list(datas) + ["absent-0"]
+    n, k = cache.coder.n, cache.coder.k
+    picked = []
+    account = cache._account_stripes
+
+    def spy(pk, resp, deadline_h):
+        lat, stripes = account(pk, resp, deadline_h)
+        if stripes is not None:
+            picked.append(sorted(stripes))
+        return lat, stripes
+    cache._account_stripes = spy
+    gets = {node: len(cache.nodes[node].get_lat.samples)
+            for node in cache.nodes}
+    before = COUNTERS.get("l2.parity_rebuilds")
+    calls = []
+    out = cache.get_chunks(names, 1000, on_ready=lambda name, lat, d:
+                           calls.append((name, threading.get_ident(), d)))
+    me = threading.get_ident()
+    assert calls == [(name, me, datas[name]) for name in datas]
+    assert out["absent-0"][1] is None
+    for node in cache.nodes:
+        want = sum(node in cache.ring.lookup(nm, count=n) for nm in names)
+        assert len(cache.nodes[node].get_lat.samples) - gets[node] == want
+    rebuilds = sum(idx[-1] >= k for idx in picked)
+    assert len(picked) == len(datas)
+    assert COUNTERS.get("l2.parity_rebuilds") - before == rebuilds
+    assert 0 < rebuilds < len(datas)
